@@ -1,0 +1,168 @@
+"""Conformation-ensemble sampling CLI on the port (``--mode ddpm``).
+
+Port of ``esmdiff_tpu/cli/sample.py``: per-target PDB in a directory -> N
+sampled conformations -> one multi-MODEL PDB per target, plus
+``timings.json``.  Same flags, plus ``--device`` (default ``cuda``); the
+gibbs and eb modes, checkpoints, int8, inpainting, refinement, profiling
+and data parallelism are not ported yet and raise.
+
+    python -m esmdiff_tpu_torch.cli.sample --input data/targets/bpti \\
+        --output output/torch --mode ddpm --num_steps 25 --num_samples 100
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import torch
+
+from esmdiff_tpu_torch.api.generation import EnsembleSampler
+from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
+from esmdiff_tpu_torch.core import protein as protein_io
+from esmdiff_tpu_torch.models.esm3 import ESM3Config, esm3_tiny
+from esmdiff_tpu_torch.models.vqvae import DecoderConfig
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet")
+
+
+def build_runtime(args) -> ESM3Runtime:
+    if args.ckpt or args.vqvae_ckpt:
+        _not_ported("checkpoint loading (--ckpt/--vqvae_ckpt)")
+    print("[warning] no --ckpt given: sampling with RANDOM weights "
+          "(throughput/dev runs only — outputs are not physical ensembles)")
+    if args.model_scale == "full":
+        return ESM3Runtime.random_init(
+            seed=args.seed, trunk_cfg=ESM3Config(head_type="structure"),
+            device=args.device)
+    return ESM3Runtime.random_init(
+        seed=args.seed,
+        trunk_cfg=esm3_tiny(head_type="structure", dtype="float32"),
+        decoder_cfg=DecoderConfig(d_model=64, n_heads=2, n_layers=2,
+                                  dtype="float32"),
+        device=args.device)
+
+
+def get_argparser():
+    p = argparse.ArgumentParser(
+        description="Sample protein conformation ensembles (PyTorch port).")
+    p.add_argument("--input", type=str, nargs="+",
+                   default=["data/targets/bpti"],
+                   help="Directories of target .pdb files.")
+    p.add_argument("--ckpt", type=str, default=None)
+    p.add_argument("--vqvae_ckpt", type=str, default=None)
+    p.add_argument("--output", type=str, default="output/inference_esmdiff")
+    p.add_argument("--mode", type=str, default="ddpm",
+                   choices=["gibbs", "ddpm", "eb"],
+                   help="ddpm = fine-tuned masked-diffusion (the only mode "
+                        "ported so far, hence the default).")
+    p.add_argument("--num_steps", type=int, default=25)
+    p.add_argument("--num_samples", type=int, default=10)
+    p.add_argument("--mask_ids", type=str, default=None)
+    p.add_argument("--filled_ids", type=str, default=None)
+    p.add_argument("--temperature", type=float, default=1.4)
+    p.add_argument("--top_p", type=float, default=0.9)
+    p.add_argument("--entropy_budget", type=float, default=1.0)
+    p.add_argument("--ref_compat", action="store_true")
+    p.add_argument("--quant", type=str, default="none",
+                   choices=["none", "int8"])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--model_scale", type=str, default="full",
+                   choices=["full", "tiny"],
+                   help="Trunk size when no ckpt is given.")
+    p.add_argument("--max_batch", type=int, default=None)
+    p.add_argument("--data_parallel", action="store_true")
+    p.add_argument("--profile", type=str, default=None)
+    p.add_argument("--skip_existing", action="store_true",
+                   help="Skip targets whose output PDB already exists.")
+    p.add_argument("--refine", action="store_true")
+    p.add_argument("--plan", type=str, default="single",
+                   choices=["single", "ladder"],
+                   help="Batch planning: 'single' = one batch size per "
+                        "length bucket; 'ladder' = fewest surplus rows.")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain "
+                        "versions.")
+    return p
+
+
+def main(argv=None, runtime: ESM3Runtime | None = None):
+    """Run the CLI; ``runtime`` optionally supplies an already built
+    runtime in place of the one ``--ckpt``/``--model_scale`` describe."""
+    args = get_argparser().parse_args(argv)
+    if args.mode != "ddpm":
+        _not_ported(f"--mode {args.mode}")
+    for flag, on in (("--quant int8", args.quant != "none"),
+                     ("--mask_ids/--filled_ids",
+                      bool(args.mask_ids or args.filled_ids)),
+                     ("--refine", args.refine),
+                     ("--profile", bool(args.profile)),
+                     ("--data_parallel", args.data_parallel)):
+        if on:
+            _not_ported(flag)
+    data_paths = [Path(p) for p in args.input]
+    for dp in data_paths:
+        assert dp.is_dir(), f"--input must be a directory: {dp}"
+    if len({dp.resolve() for dp in data_paths}) != len(data_paths):
+        raise SystemExit("--input lists the same directory twice")
+    multi_input = len(data_paths) > 1
+    output_dir = Path(args.output)
+    output_dir.mkdir(parents=True, exist_ok=True)
+
+    if runtime is None:
+        runtime = build_runtime(args)
+    sampler = EnsembleSampler(runtime, plan_policy=args.plan)
+
+    targets = []
+    for dp in data_paths:
+        sub = output_dir / dp.resolve().name if multi_input else output_dir
+        sub.mkdir(parents=True, exist_ok=True)
+        targets += [(p, sub) for p in sorted(dp.iterdir())
+                    if p.suffix == ".pdb"]
+    timings_path = output_dir / "timings.json"
+    prior: dict[str, dict] = {}
+    if args.skip_existing and timings_path.exists():
+        prior = {r["key"]: r for r in json.loads(timings_path.read_text())}
+    report = []
+    for path, out_dir_t in targets:
+        key = f"{out_dir_t.name}/{path.stem}" if multi_input else path.stem
+        out_file = out_dir_t / f"{path.stem}.pdb"
+        if args.skip_existing and out_file.exists():
+            print(f"[{key}] exists, skipped (--skip_existing)")
+            continue
+        seq = ESMProtein.from_pdb(path).sequence
+        _sync(runtime.device)
+        t0 = time.time()
+        tokens = sampler.ddpm_ensemble(
+            seq, args.num_samples, num_steps=args.num_steps, seed=args.seed,
+            max_batch=args.max_batch)
+        t_tokens = time.time() - t0
+        prots = sampler.decode_ensemble(seq, tokens)
+        t_total = time.time() - t0
+        protein_io.ensemble_to_pdb_file(
+            [p.to_protein() for p in prots], out_file)
+        print(f"[{key}] {args.num_samples} samples x "
+              f"{args.num_steps} steps: tokens {t_tokens:.2f}s, "
+              f"total {t_total:.2f}s -> {out_file}")
+        report.append({
+            "target": path.stem, "key": key, "L": len(seq),
+            "num_samples": args.num_samples,
+            "sampling_sec": t_tokens, "total_sec": t_total,
+        })
+    prior.update({r["key"]: r for r in report})
+    timings_path.write_text(
+        json.dumps(sorted(prior.values(), key=lambda r: r["key"]), indent=2))
+    return report
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+if __name__ == "__main__":
+    main()

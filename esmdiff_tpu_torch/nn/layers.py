@@ -1,0 +1,186 @@
+"""Core transformer building blocks of the ESM3 trunk, in PyTorch.
+
+Port of ``esmdiff_tpu/nn/layers.py`` (the ``qkv_backend="xla"``,
+``quant="none"`` branch).  Submodule and parameter names follow the flax
+modules (``ln``, ``qkv``, ``q_ln``, ...), so ``convert.py`` maps a flax tree
+onto a state dict by renaming leaves only.
+
+Dtypes follow flax: parameters are held in float32 (``param_dtype``) and a
+module casts them to its compute ``dtype`` at use; ``cast_matmul_weights``
+stores matmul weights in the compute dtype once (the same values the
+per-use cast gives) so an inference forward does not re-cast them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import dot_product_attention
+from .rotary import apply_rotary
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: y = x W + b in ``dtype``; ``weight`` is (out, in),
+    the transpose of the flax kernel."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = (nn.Parameter(torch.empty(out_features)) if use_bias
+                     else None)
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: the table is cast to ``dtype`` before the lookup."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(num_embeddings, features))
+
+    def forward(self, idx):
+        return F.embedding(idx, self.weight.to(self.dtype))
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with float32 statistics (population variance, eps 1e-5), a
+    scale and an optional bias; returns the input's dtype."""
+
+    def __init__(self, dim: int, use_bias: bool = False):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim)) if use_bias else None
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias,
+                         eps=1e-5)
+        return y.to(x.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """ESM3 attention: LN -> QKV projection -> q/k LayerNorm over the full
+    model dim -> rotary per head -> attention -> output projection; no
+    biases."""
+
+    def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.d_model, self.n_heads = d_model, n_heads
+        self.ln = LayerNorm(d_model)
+        self.qkv = Dense(d_model, 3 * d_model, use_bias=False, dtype=dtype)
+        self.q_ln = LayerNorm(d_model)
+        self.k_ln = LayerNorm(d_model)
+        self.out = Dense(d_model, d_model, use_bias=False, dtype=dtype)
+
+    def forward(self, x, rot_cos, rot_sin, lengths=None):
+        B, L, _ = x.shape
+        dh = self.d_model // self.n_heads
+        q, k, v = self.qkv(self.ln(x)).split(self.d_model, dim=-1)
+        q = self.q_ln(q).reshape(B, L, self.n_heads, dh)
+        k = self.k_ln(k).reshape(B, L, self.n_heads, dh)
+        v = v.reshape(B, L, self.n_heads, dh)
+        q = apply_rotary(q, rot_cos, rot_sin)
+        k = apply_rotary(k, rot_cos, rot_sin)
+        o = dot_product_attention(q, k, v, lengths=lengths)
+        return self.out(o.reshape(B, L, self.d_model))
+
+
+class SwiGLUFFN(nn.Module):
+    """Pre-norm SwiGLU MLP: LN -> Dense(d, 2h) -> silu(a)*b -> Dense(h, d)."""
+
+    def __init__(self, d_model: int, hidden: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.ln = LayerNorm(d_model)
+        self.up = Dense(d_model, 2 * hidden, use_bias=False, dtype=dtype)
+        self.down = Dense(hidden, d_model, use_bias=False, dtype=dtype)
+
+    def forward(self, x):
+        a, b = self.up(self.ln(x)).chunk(2, dim=-1)
+        return self.down(F.silu(a) * b)
+
+
+def swiglu_hidden_dim(d_model: int, expansion_ratio: float = 8 / 3) -> int:
+    """SwiGLU hidden width rounded up to a multiple of 256 (ESM3:
+    d_model=1536 -> 4096)."""
+    return int(((expansion_ratio * d_model) + 255) // 256 * 256)
+
+
+class RegressionHead(nn.Module):
+    """Dense -> exact (erf) GELU -> LayerNorm(+bias) -> Dense; float32 out."""
+
+    def __init__(self, d_model: int, output_dim: int,
+                 hidden_dim: Optional[int] = None, dtype=torch.bfloat16):
+        super().__init__()
+        hidden = hidden_dim or d_model
+        self.dense = Dense(d_model, hidden, dtype=dtype)
+        self.ln = LayerNorm(hidden, use_bias=True)
+        self.out = Dense(hidden, output_dim, dtype=dtype)
+
+    def forward(self, x):
+        h = self.ln(F.gelu(self.dense(x)))
+        return self.out(h).float()
+
+
+class TimestepEmbedder(nn.Module):
+    """Sinusoidal frequency embedding (cos before sin) + 2-layer SiLU MLP."""
+
+    def __init__(self, hidden_size: int, frequency_embedding_size: int = 256,
+                 max_period: float = 10000.0, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.frequency_embedding_size = frequency_embedding_size
+        self.max_period = max_period
+        self.fc1 = Dense(frequency_embedding_size, hidden_size, dtype=dtype)
+        self.fc2 = Dense(hidden_size, hidden_size, dtype=dtype)
+
+    def forward(self, t):
+        half = self.frequency_embedding_size // 2
+        freqs = torch.exp(
+            -math.log(self.max_period)
+            * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+        args = t.float()[:, None] * freqs[None]
+        emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+        return self.fc2(F.silu(self.fc1(emb.to(self.dtype))))
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator) -> None:
+    """Random weights with flax's default initialisers' scales: Dense
+    kernels N(0, 1/fan_in), embeddings N(0, 1/num_embeddings), LayerNorm
+    scale 1, every bias and every other parameter 0."""
+    for m in module.modules():
+        own = dict(m.named_parameters(recurse=False))
+        if isinstance(m, Dense):
+            m.weight.normal_(0.0, m.weight.shape[1] ** -0.5,
+                             generator=generator)
+            own.pop("weight")
+        elif isinstance(m, Embed):
+            m.weight.normal_(0.0, m.weight.shape[0] ** -0.5,
+                             generator=generator)
+            own.pop("weight")
+        elif isinstance(m, LayerNorm):
+            own.pop("scale").fill_(1.0)
+        for p in own.values():
+            p.zero_()
+
+
+@torch.no_grad()
+def cast_matmul_weights(module: nn.Module) -> nn.Module:
+    """Store every Dense/Embed weight (and Dense bias) in its module's
+    compute dtype.  Numerically the same as flax's cast at use."""
+    for m in module.modules():
+        if isinstance(m, (Dense, Embed)):
+            for p in m.parameters(recurse=False):
+                p.data = p.data.to(m.dtype)
+    return module

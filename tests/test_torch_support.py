@@ -1,0 +1,81 @@
+"""Shared helpers for the PyTorch port's parity tests (no tests here).
+
+The JAX package is the reference: the same numpy inputs go through a JAX
+function and its counterpart in ``esmdiff_tpu_torch``; weights travel from
+``jax.device_get`` of the flax params through ``esmdiff_tpu_torch.convert``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from esmdiff_tpu_torch.convert import load_flax_params
+
+torch.set_num_threads(2)
+
+
+def to_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def perturb(tree, seed: int = 0, scale: float = 0.1):
+    """Host copy of a flax param tree with every leaf moved off its init
+    value (LayerNorm scales off 1, biases off 0), so that no parameter can
+    be silently dropped by the carry-over."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        a = np.asarray(t, np.float32)
+        return (a + scale * rng.standard_normal(a.shape)).astype(np.float32)
+
+    return walk(jax.device_get(tree))
+
+
+def carry(torch_module, flax_params):
+    """Load flax params into a float32 CPU torch module, strictly."""
+    return load_flax_params(torch_module.float(), jax.device_get(flax_params))
+
+
+def jax_ddpm_draws(row_keys, L: int, V: int):
+    """The draws ``esmdiff_tpu`` ``MDLM.ddpm_sample`` makes, as a noise
+    source for the port: per-position keys ``fold_in(row_key, pos)``
+    (``position_keys``), then per step ``fold_in(key, step)`` split into a
+    token key (-> ``jax.random.gumbel((V,))``) and a stay key (->
+    ``jax.random.uniform(())``)."""
+    from esmdiff_tpu.diffusion.mdlm import position_keys
+
+    row_keys = jnp.asarray(row_keys, jnp.uint32)
+    B = row_keys.shape[0]
+    pos_keys = position_keys(row_keys, L)
+    fold2 = jax.vmap(jax.vmap(jax.random.fold_in))
+
+    @jax.jit
+    def draws(step):
+        ks = fold2(pos_keys, jnp.full((B, L), step, jnp.int32))
+        k_tok = fold2(ks, jnp.zeros((B, L), jnp.int32))
+        k_stay = fold2(ks, jnp.ones((B, L), jnp.int32))
+        g = jax.vmap(jax.vmap(
+            lambda k: jax.random.gumbel(k, (V,), jnp.float32)))(k_tok)
+        u = jax.vmap(jax.vmap(lambda k: jax.random.uniform(k, ())))(k_stay)
+        return g, u
+
+    def source(step):
+        g, u = draws(step)
+        return torch.from_numpy(np.array(g)), torch.from_numpy(np.array(u))
+
+    return source
+
+
+def jax_request_noise_factory(rows, L, V, device):
+    """Noise factory for the port's EnsembleSampler that reproduces the JAX
+    sampler's draws: row (seed, j) gets ``request_row_keys(seed, ...)[j]``
+    = ``fold_in(PRNGKey(seed), j)``."""
+    keys = np.stack([
+        np.asarray(jax.random.fold_in(jax.random.PRNGKey(int(s)), int(j)))
+        for s, j in rows])
+    return jax_ddpm_draws(keys, L, V)
