@@ -39,6 +39,10 @@ class ESM3Config:
     n_structure_heads: int = C.STRUCTURE_VOCAB_SIZE
     n_sequence_heads: int = 0
     dtype: str = "bfloat16"
+    # "auto"/"flash" = flash kernel, "small" = rotary fused into the
+    # attention kernel, "xla" = plain attention (nn/layers.py)
+    attn_backend: str = "auto"
+    qkv_backend: str = "xla"  # "fused" = LN + QKV + QK-LN kernel
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -75,7 +79,9 @@ class TransformerBlock(nn.Module):
         super().__init__()
         dt = cfg.torch_dtype
         self.scale = cfg.residue_scaling_factor
-        self.attn = MultiHeadAttention(cfg.d_model, cfg.n_heads, dtype=dt)
+        self.attn = MultiHeadAttention(cfg.d_model, cfg.n_heads, dtype=dt,
+                                       attn_backend=cfg.attn_backend,
+                                       qkv_backend=cfg.qkv_backend)
         # owned, so checkpoints load strictly
         self.geom_attn = (GeometricAttention(cfg.d_model, cfg.v_heads,
                                              dtype=dt)

@@ -3,7 +3,8 @@
 Port of ``esmdiff_tpu/nn/attention.py``.  Masking contract:
 
   - ``lengths`` (B,) int32 — contiguous-prefix valid lengths (bucketed
-    padding), or no mask at all.  Goes to ``ops.flash_attention``, which
+    padding), or no mask at all.  With ``backend="flash"`` (the default;
+    ``"xla"`` takes the plain path) it goes to ``ops.flash_attention``, which
     launches the CUDA kernel for a CUDA tensor and runs its plain version
     for a CPU tensor.  Unlike the JAX package there is no length threshold
     (its ``_FLASH_MIN_LEN`` was tuned on another chip): every prefix-length
@@ -19,13 +20,18 @@ import torch
 from esmdiff_tpu_torch.ops.flash_attention import flash_attention
 
 
-def dot_product_attention(q, k, v, bias=None, mask=None, lengths=None):
+def dot_product_attention(q, k, v, bias=None, mask=None, lengths=None,
+                          backend: str = "flash"):
     """q,k,v: (B, L, H, Dh).  mask: (B, 1|H, L, L) bool, True = attend.
     lengths: (B,) int32 valid-prefix lengths (mutually exclusive with mask).
+    backend: "flash" = the kernel path when there is no mask or bias;
+    "xla" = the plain path always.
     Softmax is accumulated in float32 whatever the io dtype."""
     if mask is not None and lengths is not None:
         raise ValueError("pass either `mask` or `lengths`, not both")
-    if mask is None and bias is None:
+    if backend not in ("flash", "xla"):
+        raise ValueError(f"backend must be 'flash' or 'xla'; got {backend!r}")
+    if backend == "flash" and mask is None and bias is None:
         return flash_attention(q, k, v, lengths)
     if lengths is not None:
         key_ok = (torch.arange(q.shape[1], device=q.device)[None, :]

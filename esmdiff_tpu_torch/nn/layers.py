@@ -1,9 +1,11 @@
 """Core transformer building blocks of the ESM3 trunk, in PyTorch.
 
-Port of ``esmdiff_tpu/nn/layers.py`` (the ``qkv_backend="xla"``,
-``quant="none"`` branch).  Submodule and parameter names follow the flax
-modules (``ln``, ``qkv``, ``q_ln``, ...), so ``convert.py`` maps a flax tree
-onto a state dict by renaming leaves only.
+Port of ``esmdiff_tpu/nn/layers.py`` (the ``quant="none"`` branch, with
+both ``qkv_backend`` and every ``attn_backend``).  Submodule and parameter
+names follow the flax modules (``ln``, ``qkv``, ``q_ln``, ...), and the
+fused-QKV path owns the same parameters as the unfused one, so
+``convert.py`` maps a flax tree made with either backend onto a state dict
+by renaming leaves only.
 
 Dtypes follow flax: parameters are held in float32 (``param_dtype``) and a
 module casts them to its compute ``dtype`` at use; ``cast_matmul_weights``
@@ -20,8 +22,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from esmdiff_tpu_torch.ops.fused_qkv import fused_ln_qkv
+from esmdiff_tpu_torch.ops.small_attention import small_attention
+
 from .attention import dot_product_attention
 from .rotary import apply_rotary
+
+# the values the JAX package's ESM3Config takes
+ATTN_BACKENDS = ("auto", "flash", "small", "xla")
+QKV_BACKENDS = ("xla", "fused")
 
 
 class Dense(nn.Module):
@@ -72,11 +81,26 @@ class LayerNorm(nn.Module):
 class MultiHeadAttention(nn.Module):
     """ESM3 attention: LN -> QKV projection -> q/k LayerNorm over the full
     model dim -> rotary per head -> attention -> output projection; no
-    biases."""
+    biases.
 
-    def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16):
+    qkv_backend: "xla" = LayerNorm, Dense and q/k LayerNorm as separate
+    ops; "fused" = one kernel (``ops/fused_qkv.py``) on the same parameters.
+    attn_backend: "auto" and "flash" = the flash kernel
+    (``ops/flash_attention.py``); "small" = rotary fused into the attention
+    kernel (``ops/small_attention.py``); "xla" = ``plain_attention``.
+    """
+
+    def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16,
+                 attn_backend: str = "auto", qkv_backend: str = "xla"):
         super().__init__()
+        if attn_backend not in ATTN_BACKENDS:
+            raise ValueError(f"attn_backend must be one of {ATTN_BACKENDS}; "
+                             f"got {attn_backend!r}")
+        if qkv_backend not in QKV_BACKENDS:
+            raise ValueError(f"qkv_backend must be one of {QKV_BACKENDS}; "
+                             f"got {qkv_backend!r}")
         self.d_model, self.n_heads = d_model, n_heads
+        self.attn_backend, self.qkv_backend = attn_backend, qkv_backend
         self.ln = LayerNorm(d_model)
         self.qkv = Dense(d_model, 3 * d_model, use_bias=False, dtype=dtype)
         self.q_ln = LayerNorm(d_model)
@@ -86,13 +110,26 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, rot_cos, rot_sin, lengths=None):
         B, L, _ = x.shape
         dh = self.d_model // self.n_heads
-        q, k, v = self.qkv(self.ln(x)).split(self.d_model, dim=-1)
-        q = self.q_ln(q).reshape(B, L, self.n_heads, dh)
-        k = self.k_ln(k).reshape(B, L, self.n_heads, dh)
+        if self.qkv_backend == "fused":
+            # weight.t() is a (D, 3D) view: the kernel reads it in place
+            qkv = fused_ln_qkv(x, self.ln.scale,
+                               self.qkv.weight.t().to(self.qkv.dtype),
+                               self.q_ln.scale, self.k_ln.scale)
+            q, k, v = qkv.split(self.d_model, dim=-1)
+        else:
+            q, k, v = self.qkv(self.ln(x)).split(self.d_model, dim=-1)
+            q, k = self.q_ln(q), self.k_ln(k)
+        q = q.reshape(B, L, self.n_heads, dh)
+        k = k.reshape(B, L, self.n_heads, dh)
         v = v.reshape(B, L, self.n_heads, dh)
-        q = apply_rotary(q, rot_cos, rot_sin)
-        k = apply_rotary(k, rot_cos, rot_sin)
-        o = dot_product_attention(q, k, v, lengths=lengths)
+        if self.attn_backend == "small":
+            o = small_attention(q, k, v, rot_cos, rot_sin, lengths)
+        else:
+            q = apply_rotary(q, rot_cos, rot_sin)
+            k = apply_rotary(k, rot_cos, rot_sin)
+            o = dot_product_attention(
+                q, k, v, lengths=lengths,
+                backend="xla" if self.attn_backend == "xla" else "flash")
         return self.out(o.reshape(B, L, self.d_model))
 
 

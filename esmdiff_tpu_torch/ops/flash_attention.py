@@ -8,10 +8,9 @@ casts p to v's dtype before p.v (fp32 accumulation) and multiplies the
 output by 1/sum(p).  A row with lengths[b] == 0 therefore gets the mean of V
 over all L rows, as in JAX.
 
-The kernel (``csrc/flash_attention.cu``) is CUDA C++ for ``sm_90a``, built
-with ``nvcc`` at first use into ``build/torch_ext/`` and bound through ctypes
-(a plain C interface: seconds to build, no PyTorch headers).  Its bound on an
-H100 and what its design does about it are in the source's header: at the
+The kernel (``csrc/flash_attention.cu`` over ``csrc/attention_tiles.cuh``)
+is CUDA C++ for ``sm_90a``, built by ``ops/_build.py``.  Its bound on an
+H100 and what its design does about it are in the sources' headers: at the
 main path's L (64) the bytes bound it, so it reads the native (B, L, H, Dh)
 strides directly and streams K/V in 64-key tiles (two passes, so p is
 rounded to bf16 at the same point as in JAX), instead of the TPU kernel's
@@ -24,53 +23,15 @@ counts kernel launches and nothing else.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import torch
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from esmdiff_tpu_torch.ops import _build
+from esmdiff_tpu_torch.ops._build import INT, LONG, PTR
+
 HEAD_DIM = 64
+_ARGTYPES = [PTR] * 5 + [INT] * 3 + [LONG] * 12
 
 launches = 0       # kernel launches (plain-version calls are not counted)
-build_log = ""     # nvcc's output (ptxas registers / shared memory / spills)
-_lib = None
-
-
-def build() -> ctypes.CDLL:
-    """Compile the kernel (once per source content) and load it."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    tag = hashlib.sha1(_SRC.read_bytes()).hexdigest()[:12]
-    so = BUILD_DIR / f"libflash_attention_{tag}.so"
-    if not so.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                             capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {res.returncode}:\n{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    c = ctypes
-    lib.esmdiff_flash_attention_fwd.restype = c.c_int
-    lib.esmdiff_flash_attention_fwd.argtypes = (
-        [c.c_void_p] * 5 + [c.c_int] * 3 + [c.c_longlong] * 12 + [c.c_void_p])
-    lib.esmdiff_cuda_error_string.restype = c.c_char_p
-    lib.esmdiff_cuda_error_string.argtypes = [c.c_int]
-    _lib = lib
-    return lib
 
 
 def check_kernel_args(q, k, v, lengths=None) -> None:
@@ -97,6 +58,15 @@ def check_kernel_args(q, k, v, lengths=None) -> None:
                          f"{tuple(lengths.shape)} {lengths.dtype}")
 
 
+def kernel_lengths(q, lengths):
+    """``lengths`` as the kernels take it: (B,) int32 on q's device, all L
+    when None."""
+    if lengths is None:
+        return torch.full((q.shape[0],), q.shape[1], dtype=torch.int32,
+                          device=q.device)
+    return lengths.to(device=q.device, dtype=torch.int32).contiguous()
+
+
 def flash_attention(q, k, v, lengths=None):
     """q, k, v: (B, L, H, Dh) -> (B, L, H, Dh); lengths: optional (B,)."""
     global launches
@@ -106,22 +76,15 @@ def flash_attention(q, k, v, lengths=None):
         raise ValueError(f"no kernel for device {q.device}")
     check_kernel_args(q, k, v, lengths)
     B, L, H, _ = q.shape
-    if lengths is None:
-        lengths = torch.full((B,), L, dtype=torch.int32, device=q.device)
-    else:
-        lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    lengths = kernel_lengths(q, lengths)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    lib = build()
-    err = lib.esmdiff_flash_attention_fwd(
+    _build.launch(
+        "flash_attention", "esmdiff_flash_attention_fwd", _ARGTYPES, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lengths.data_ptr(), B, L, H,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError("flash_attention kernel launch failed: "
-                           + lib.esmdiff_cuda_error_string(err).decode())
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     launches += 1
     return out
 

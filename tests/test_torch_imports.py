@@ -39,7 +39,7 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 20  # every module was imported
+    assert int(res.stdout.split()[-1]) >= 31  # every module was imported
 
 
 def test_no_jax_import_lines():

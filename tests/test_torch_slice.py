@@ -1,8 +1,10 @@
 """The port's ddpm slice end to end on the CPU, against the JAX package:
-BPTI, tiny trunk and decoder carried over from a JAX ``ESM3Runtime``,
-injected JAX noise -> equal tokens, coordinates within 1e-3 A; and the
-port's CLI writes a well-formed multi-MODEL PDB."""
+BPTI, tiny trunk and decoder carried over from a JAX ``ESM3Runtime`` (in
+the default configuration and in the trunk's fused-kernel one), injected
+JAX noise -> equal tokens, coordinates within 1e-3 A; and the port's CLI
+writes a well-formed multi-MODEL PDB."""
 
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -25,20 +27,25 @@ BPTI = "data/targets/bpti"
 BPTI_PDB = f"{BPTI}/bpti.pdb"
 
 
-def test_bpti_slice_matches_jax():
+def _runtimes(**trunk_kw):
+    """A tiny JAX ESM3Runtime and the port's, carried over from it."""
     dec_kw = dict(d_model=64, n_heads=2, n_layers=2, dtype="float32")
+    trunk_kw = dict(head_type="structure", dtype="float32", **trunk_kw)
     jrt = JRuntime.random_init(
-        seed=3, trunk_cfg=jesm3_tiny(head_type="structure", dtype="float32"),
+        seed=3, trunk_cfg=jesm3_tiny(**trunk_kw),
         encoder_cfg=JEncoderConfig(d_model=64, n_heads=2, v_heads=8,
                                    n_layers=2, d_out=16, knn=8),
         decoder_cfg=JDecoderConfig(scan_layers=False, **dec_kw))
-    trunk = carry(ESM3(esm3_tiny(head_type="structure", dtype="float32")),
-                  jrt.trunk_params)
+    trunk = carry(ESM3(esm3_tiny(**trunk_kw)), jrt.trunk_params)
     decoder = carry(StructureTokenDecoder(DecoderConfig(**dec_kw)),
                     jrt.decoder_params)
     sig = carry(TimestepEmbedder(64, dtype=torch.float32), jrt.sigma_params)
-    rt = ESM3Runtime(trunk, decoder, sig, device="cpu")
+    return jrt, ESM3Runtime(trunk, decoder, sig, device="cpu")
 
+
+def _ddpm_and_decode_match(jrt, rt):
+    """ddpm tokens on BPTI equal with JAX's draws injected, coordinates
+    within 1e-3 A."""
     seq = ESMProtein.from_pdb(BPTI_PDB).sequence
     assert len(seq) == 58
     ref_tokens = JSampler(jrt).ddpm_ensemble(seq, 4, num_steps=4, seed=5)
@@ -55,6 +62,34 @@ def test_bpti_slice_matches_jax():
                                       np.isnan(r.coordinates))
         np.testing.assert_allclose(p.coordinates, r.coordinates, atol=1e-3,
                                    equal_nan=True)
+
+
+def test_bpti_slice_matches_jax():
+    _ddpm_and_decode_match(*_runtimes())
+
+
+def test_bpti_fused_config_slice_matches_jax():
+    """The trunk's fused-kernel configuration (qkv_backend="fused",
+    attn_backend="small"): JAX runs both Pallas kernels in interpret mode,
+    the port their plain versions; the decoder keeps the defaults."""
+    jrt, rt = _runtimes(qkv_backend="fused", attn_backend="small")
+    assert rt.trunk.transformer.blocks[0].attn.qkv_backend == "fused"
+    assert rt.decoder.decoder_stack.blocks[0].attn.attn_backend == "auto"
+    seq = rt.seq_tokenizer.encode(ESMProtein.from_pdb(BPTI_PDB).sequence)
+    toks = np.full((2, 64), 1, np.int32)
+    toks[:, :len(seq)] = seq
+    lengths = np.array([len(seq), 40], np.int32)
+    ref = jrt.trunk.apply({"params": jrt.trunk_params},
+                          sequence_tokens=jnp.asarray(toks),
+                          lengths=jnp.asarray(lengths))
+    with torch.no_grad():
+        out = rt.trunk(sequence_tokens=torch.from_numpy(toks).long(),
+                       lengths=torch.from_numpy(lengths))
+    for b, n in enumerate(lengths):
+        np.testing.assert_allclose(
+            out.structure_logits[b, :n].numpy(),
+            np.asarray(ref.structure_logits)[b, :n], atol=1e-4)
+    _ddpm_and_decode_match(jrt, rt)
 
 
 def test_plan_matches_jax():
