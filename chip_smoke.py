@@ -10,10 +10,12 @@ Phases, each of which fails loudly (no error is caught):
      unit-normal inputs; the attention kernels at random lengths with one
      empty row; the fused LN/projection kernels on layer 0's weights of the
      full-width runtime, at a row count that is not a multiple of the row
-     tile too), and time the kernel, the plain version and the PyTorch
-     library call that computes the same function, or for the fused
-     projections only their products (a yardstick: the port never calls
-     it), beside the bound from the bytes and operations this run needs;
+     tile too; fused_qkv also at T 64 and, on random weights, D 512), and
+     time the kernel, the plain version and the PyTorch library call that
+     computes the same function, or for the fused projections only their
+     products (a yardstick: the port never calls it), beside the bound from
+     the bytes and operations this run needs; for fused_qkv also the host
+     time of one call (200 calls back to back, no synchronise);
   3. the default path: a full-width ESM3Runtime.random_init (1.4B trunk +
      30 x 1280 decoder, seed 0) through the port's CLI, ddpm, 25 steps, 100
      samples of BPTI -> a 100-MODEL PDB, timed after one untimed request at
@@ -170,24 +172,51 @@ def check_small_attention(torch, sa, B, L, H, gen):
     }
 
 
-def check_fused_qkv(torch, fq, attn, T, gen):
-    """LN + QKV + QK-LN kernel vs plain version on layer 0's attention
-    weights; the yardstick is the (T, D) x (D, 3D) product alone."""
+def host_ms(torch, fn, calls=200):
+    """Host wall time per call of ``calls`` back-to-back calls, with no
+    synchronise between them: what a call costs the CPU that enqueues it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * elapsed / calls
+
+
+def qkv_weights(torch, D, gen, attn=None):
+    """(ln, qkv.weight (3D, D), q_ln, k_ln): layer 0's attention weights at
+    the trunk's width, else random ones of the same kind at width D."""
+    if attn is not None:
+        return (attn.ln.scale, attn.qkv.weight, attn.q_ln.scale,
+                attn.k_ln.scale)
+    w = (torch.randn(3 * D, D, device="cuda", generator=gen)
+         * D ** -0.5).to(torch.bfloat16)
+    ln, qs, ks = (1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
+                  for _ in range(3))
+    return ln, w, qs, ks
+
+
+def check_fused_qkv(torch, fq, weights, T, gen):
+    """LN + QKV + QK-LN kernel vs plain version; the yardstick is the
+    (T, D) x (D, 3D) product alone.  Also the host time a call costs (the
+    wrapper and the TMA descriptor it encodes)."""
     import torch.nn.functional as F
 
-    D = attn.d_model
+    ln, weight, qs, ks = weights
+    D = weight.shape[1]
     x = torch.randn(T, D, device="cuda", dtype=torch.bfloat16, generator=gen)
-    args = (x, attn.ln.scale, attn.qkv.weight.t(), attn.q_ln.scale,
-            attn.k_ln.scale)
+    args = (x, ln, weight.t(), qs, ks)
     res = compare(torch, "fused_qkv", fq.fused_ln_qkv(*args),
                   fq.fused_ln_qkv_reference(*args), (T, D), relative=True)
-    xn = fq.ln_f32(x, attn.ln.scale).to(torch.bfloat16)
-    nbytes = (x.numel() + attn.qkv.weight.numel() + 3 * T * D) * 2 + 3 * D * 4
+    xn = fq.ln_f32(x, ln).to(torch.bfloat16)
+    nbytes = (x.numel() + weight.numel() + 3 * T * D) * 2 + 3 * D * 4
     return {
         "T": T, "D": D, **res,
         "ms": cuda_ms(torch, lambda: fq.fused_ln_qkv(*args)),
+        "host_ms_per_call": host_ms(torch, lambda: fq.fused_ln_qkv(*args)),
         "plain_ms": cuda_ms(torch, lambda: fq.fused_ln_qkv_reference(*args)),
-        "library_ms": cuda_ms(torch, lambda: F.linear(xn, attn.qkv.weight)),
+        "library_ms": cuda_ms(torch, lambda: F.linear(xn, weight)),
         "library": "F.linear, the products only",
         # LayerNorms: about 5 fp32 operations per x and q/k value
         **bound(2.0 * T * D * 3 * D, nbytes, fp32_flops=15.0 * T * D),
@@ -346,7 +375,9 @@ def main() -> int:
     # 2. kernels against their plain versions: the trunk's and decoder's
     # attention shapes (B 64 L 64 H 24; B 32 L 64 H 20) and the JAX
     # package's own longer lengths; the projections at the trunk's T = 4096
-    # tokens (64 x 64) and at 1000 (not a multiple of their row tiles)
+    # tokens (64 x 64) and at 1000 (not a multiple of their row tiles);
+    # fused_qkv also below one row tile (T 64) and at its narrowest width
+    # (D 512, random weights)
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.set_grad_enabled(False)  # inference throughout, as the CLI runs
     shapes = {
@@ -356,8 +387,12 @@ def main() -> int:
         "small_attention": [check_small_attention(torch, sa, B, L, H, gen)
                             for B, L, H in ((64, 64, 24), (32, 128, 24),
                                             (16, 512, 24))],
-        "fused_qkv": [check_fused_qkv(torch, fq, layer0.attn, T, gen)
-                      for T in (4096, 1000)],
+        "fused_qkv": [check_fused_qkv(
+            torch, fq, qkv_weights(
+                torch, D, gen,
+                layer0.attn if D == layer0.attn.d_model else None),
+            T, gen) for T, D in ((4096, 1536), (1000, 1536), (64, 1536),
+                                 (4096, 512), (64, 512))],
         "fused_ffn": [check_fused_ffn(torch, ff, layer0.ffn, M, gen)
                       for M in (4096, 1000)],
     }

@@ -12,13 +12,15 @@ unfused path (and the JAX ``_reference_ln_qkv``, its backward) rounds the
 product to bf16 first, and the two agree in fp32.
 
 The kernel (``csrc/fused_qkv.cu``) is CUDA C++ for ``sm_90a``, built by
-``ops/_build.py``: 64-row tiles whose D output columns are split over a
+``ops/_build.py``: 192-row tiles whose D output columns are split over a
 cluster of 8 blocks that share the q/k LayerNorm statistics; its products
-are its own (WMMA), and it reads W through its strides, so the port's
-(3D, D) weight goes in as ``weight.t()`` with no copy.  ``fused_ln_qkv``
-runs the plain version for a CPU tensor and launches the kernel for a CUDA
-tensor, or raises: there is no fallback.  ``launches`` counts kernel
-launches and nothing else.
+are ``wgmma`` on a ring of shared-memory stages that TMA fills with W, and
+it reads W in place through one TMA descriptor per call, K-major (the
+port's (3D, D) weight goes in as ``weight.t()``) or MN-major (a row-major
+(D, 3D) W, through wgmma's transpose bit): no copy for either layout.
+``fused_ln_qkv`` runs the plain version for a CPU tensor and launches the
+kernel for a CUDA tensor, or raises: there is no fallback.  ``launches``
+counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -61,6 +63,24 @@ def check_weight(name, w, shape) -> None:
         raise ValueError(f"{name}: the kernel needs 32-byte alignment")
 
 
+def check_tma_weight(w, shape) -> None:
+    """Raise ValueError unless ``w`` is a bf16 matrix of ``shape`` that a
+    TMA descriptor can describe: one stride 1 (K-major as ``weight.t()``,
+    or MN-major), the other a multiple of 8 elements (16 bytes), the data
+    16-byte aligned."""
+    if tuple(w.shape) != tuple(shape):
+        raise ValueError(f"w_qkv must be {tuple(shape)}; got {tuple(w.shape)}")
+    if w.dtype != torch.bfloat16:
+        raise ValueError(f"w_qkv: the kernel takes bfloat16, got {w.dtype}")
+    s0, s1 = w.stride()
+    if not ((s0 == 1 and s1 % 8 == 0) or (s1 == 1 and s0 % 8 == 0)):
+        raise ValueError(f"w_qkv: TMA needs a row- or column-major matrix "
+                         f"whose leading stride is a multiple of 16 bytes; "
+                         f"got strides {w.stride()}")
+    if w.data_ptr() % 16:
+        raise ValueError("w_qkv: TMA needs a 16-byte aligned address")
+
+
 def check_rows(x, D) -> torch.Tensor:
     """``x`` (..., D) bf16 as a (rows, D) view whose rows the kernels read
     16 bytes at a time; raise ValueError on what they do not take."""
@@ -87,7 +107,7 @@ def fused_ln_qkv(x, ln_scale, w_qkv, q_ln_scale, k_ln_scale):
     if D not in WIDTHS:
         raise ValueError(f"the kernel takes D in {WIDTHS}; got {D}")
     x2 = check_rows(x, D)
-    check_weight("w_qkv", w_qkv, (D, 3 * D))
+    check_tma_weight(w_qkv, (D, 3 * D))
     scales = [t.to(device=x.device, dtype=torch.float32).contiguous()
               for t in (ln_scale, q_ln_scale, k_ln_scale)]
     if any(s.shape != (D,) for s in scales):

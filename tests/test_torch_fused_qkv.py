@@ -168,3 +168,52 @@ def test_widths_without_a_kernel_raise_on_the_card(D, monkeypatch):
     with pytest.raises(ValueError, match="D in"):
         fq.fused_ln_qkv(x, torch.ones(D), torch.zeros(D, 3 * D), torch.ones(D),
                         torch.ones(D))
+
+
+def _tma_weight(case, D=128):
+    """(D, 3D) bf16 weights in the layouts a TMA descriptor may or may not
+    describe."""
+    flat = torch.zeros(3 * D * D + 8, dtype=torch.bfloat16)
+    return {
+        "transpose_view": torch.zeros(3 * D, D, dtype=torch.bfloat16).t(),
+        "row_major": torch.zeros(D, 3 * D, dtype=torch.bfloat16),
+        "stride_8": torch.zeros(3 * D, D + 8, dtype=torch.bfloat16)[:, :D].t(),
+        "offset_16": flat[8:].view(3 * D, D).t(),
+        "stride_4": torch.zeros(3 * D, D + 4, dtype=torch.bfloat16)[:, :D].t(),
+        "offset_8": flat[4:4 + 3 * D * D].view(3 * D, D).t(),
+        "no_unit_stride": torch.zeros(6 * D, 2 * D,
+                                      dtype=torch.bfloat16)[::2, ::2].t(),
+        "float32": torch.zeros(3 * D, D).t(),
+        "shape": torch.zeros(3 * D, D, dtype=torch.bfloat16),
+    }[case]
+
+
+@pytest.mark.parametrize("case", [
+    "transpose_view", "row_major",
+    # TMA needs 16 bytes, not the 32-byte strides and alignment that
+    # check_weight asks of the fused_ffn kernel's weights
+    "stride_8", "offset_16",
+])
+def test_tma_weight_check_accepts(case):
+    fq.check_tma_weight(_tma_weight(case), (128, 384))
+
+
+@pytest.mark.parametrize("case", ["stride_4", "offset_8", "no_unit_stride",
+                                  "float32", "shape"])
+def test_tma_weight_check_rejects(case):
+    with pytest.raises(ValueError):
+        fq.check_tma_weight(_tma_weight(case), (128, 384))
+
+
+def test_wrapper_checks_w_with_tma_rules(monkeypatch):
+    """On a tensor that claims to be on the card, a W that TMA cannot
+    describe raises before any launch; no plain-version fallback."""
+    D = 512
+    x = torch.zeros(1, 2, D, dtype=torch.bfloat16)
+    w = torch.zeros(3 * D, D + 4, dtype=torch.bfloat16)[:, :D].t()
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    launches = fq.launches
+    with pytest.raises(ValueError, match="TMA"):
+        fq.fused_ln_qkv(x, torch.ones(D), w, torch.ones(D), torch.ones(D))
+    assert fq.launches == launches

@@ -67,16 +67,21 @@ def test_small_attention_on_card(gen, B, L, H):
         lambda: sa.small_attention_reference(q, k, v, cos, sin, lengths))
 
 
-@pytest.mark.parametrize("T", [4096, 1000])
-@pytest.mark.parametrize("layout", ["transpose_view", "contiguous"])
-def test_fused_qkv_on_card(gen, T, layout):
-    D = 1536
+@pytest.mark.parametrize("D", [512, 1024, 1536])
+@pytest.mark.parametrize("T", [4096, 1000, 64])
+@pytest.mark.parametrize("layout", ["transpose_view", "contiguous",
+                                    "padded_view"])
+def test_fused_qkv_on_card(gen, T, layout, D):
     x = torch.randn(1, T, D, device="cuda", generator=gen,
                     dtype=torch.bfloat16)
     w = (torch.randn(3 * D, D, device="cuda", generator=gen)
          * D ** -0.5).to(torch.bfloat16).t()
     if layout == "contiguous":
         w = w.contiguous()
+    elif layout == "padded_view":   # leading stride D + 8: 16 bytes, not 32
+        padded = torch.zeros(3 * D, D + 8, device="cuda", dtype=torch.bfloat16)
+        padded[:, :D] = w.t()
+        w = padded[:, :D].t()
     ln, qs, ks = (1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
                   for _ in range(3))
     _launch_and_compare(fq, lambda: fq.fused_ln_qkv(x, ln, w, qs, ks),
