@@ -10,12 +10,13 @@ Phases, each of which fails loudly (no error is caught):
      unit-normal inputs; the attention kernels at random lengths with one
      empty row; the fused LN/projection kernels on layer 0's weights of the
      full-width runtime, at a row count that is not a multiple of the row
-     tile too; fused_qkv also at T 64 and, on random weights, D 512), and
-     time the kernel, the plain version and the PyTorch library call that
-     computes the same function, or for the fused projections only their
-     products (a yardstick: the port never calls it), beside the bound from
-     the bytes and operations this run needs; for fused_qkv also the host
-     time of one call (200 calls back to back, no synchronise);
+     tile too, and at T/M 64; both also at D 512 on random weights, H 1536
+     for fused_ffn), and time the kernel, the plain version and the
+     PyTorch library call that computes the same function, or for the
+     fused projections only their products (a yardstick: the port never
+     calls it), beside the bound from the bytes and operations this run
+     needs; for the fused projections also the host time of one call (200
+     calls back to back, no synchronise);
   3. the default path: a full-width ESM3Runtime.random_init (1.4B trunk +
      30 x 1280 decoder, seed 0) through the port's CLI, ddpm, 25 steps, 100
      samples of BPTI -> a 100-MODEL PDB, timed after one untimed request at
@@ -223,28 +224,42 @@ def check_fused_qkv(torch, fq, weights, T, gen):
     }
 
 
-def check_fused_ffn(torch, ff, ffn, M, gen):
-    """SwiGLU FFN kernel vs plain version on layer 0's FFN weights; the
-    yardstick is its two products alone."""
+def ffn_weights(torch, D, H, gen, ffn=None):
+    """(ln, up.weight (2H, D), down.weight (D, H)): layer 0's FFN weights
+    at the trunk's width, else random ones of the same kind."""
+    if ffn is not None:
+        return ffn.ln.scale, ffn.up.weight, ffn.down.weight
+    up = (torch.randn(2 * H, D, device="cuda", generator=gen)
+          * D ** -0.5).to(torch.bfloat16)
+    down = (torch.randn(D, H, device="cuda", generator=gen)
+            * H ** -0.5).to(torch.bfloat16)
+    return 1 + 0.1 * torch.randn(D, device="cuda", generator=gen), up, down
+
+
+def check_fused_ffn(torch, ff, weights, M, gen):
+    """SwiGLU FFN kernel vs plain version; the yardstick is its two
+    products alone.  Also the host time a call costs (the wrapper and the
+    three TMA descriptors it encodes)."""
     import torch.nn.functional as F
 
-    D, H = ffn.down.weight.shape
+    ln, up, down = weights
+    D, H = down.shape
     x = torch.randn(M, D, device="cuda", dtype=torch.bfloat16, generator=gen)
-    args = (x, ffn.ln.scale, ffn.up.weight.t(), ffn.down.weight.t())
+    args = (x, ln, up.t(), down.t())
     res = compare(torch, "fused_ffn", ff.fused_swiglu_ffn(*args),
                   ff.fused_swiglu_ffn_reference(*args), (M, D, H),
                   relative=True)
     xn = torch.randn(M, D, device="cuda", dtype=torch.bfloat16, generator=gen)
     hid = torch.randn(M, H, device="cuda", dtype=torch.bfloat16, generator=gen)
-    nbytes = (2 * x.numel() + ffn.up.weight.numel()
-              + ffn.down.weight.numel()) * 2 + D * 4
+    nbytes = (2 * x.numel() + up.numel() + down.numel()) * 2 + D * 4
     return {
         "M": M, "D": D, "H": H, **res,
         "ms": cuda_ms(torch, lambda: ff.fused_swiglu_ffn(*args)),
+        "host_ms_per_call": host_ms(torch, lambda: ff.fused_swiglu_ffn(*args)),
         "plain_ms": cuda_ms(torch,
                             lambda: ff.fused_swiglu_ffn_reference(*args)),
         "library_ms": cuda_ms(torch, lambda: (
-            F.linear(xn, ffn.up.weight), F.linear(hid, ffn.down.weight))),
+            F.linear(xn, up), F.linear(hid, down))),
         "library": "F.linear x 2, the products only",
         # LayerNorm and the gate: about 5 fp32 operations per value
         **bound(6.0 * M * D * H, nbytes, fp32_flops=5.0 * M * (D + H)),
@@ -375,9 +390,9 @@ def main() -> int:
     # 2. kernels against their plain versions: the trunk's and decoder's
     # attention shapes (B 64 L 64 H 24; B 32 L 64 H 20) and the JAX
     # package's own longer lengths; the projections at the trunk's T = 4096
-    # tokens (64 x 64) and at 1000 (not a multiple of their row tiles);
-    # fused_qkv also below one row tile (T 64) and at its narrowest width
-    # (D 512, random weights)
+    # tokens (64 x 64), at 1000 (not a multiple of their row tiles) and
+    # below one row tile (64), and at their narrowest width (D 512, random
+    # weights; fused_ffn at H 1536, the SwiGLU hidden width of D 512)
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.set_grad_enabled(False)  # inference throughout, as the CLI runs
     shapes = {
@@ -393,8 +408,14 @@ def main() -> int:
                 layer0.attn if D == layer0.attn.d_model else None),
             T, gen) for T, D in ((4096, 1536), (1000, 1536), (64, 1536),
                                  (4096, 512), (64, 512))],
-        "fused_ffn": [check_fused_ffn(torch, ff, layer0.ffn, M, gen)
-                      for M in (4096, 1000)],
+        "fused_ffn": [check_fused_ffn(
+            torch, ff, ffn_weights(
+                torch, D, H, gen,
+                layer0.ffn if (D, H) == tuple(layer0.ffn.down.weight.shape)
+                else None),
+            M, gen) for M, D, H in ((4096, 1536, 4096), (1000, 1536, 4096),
+                                    (64, 1536, 4096), (4096, 512, 1536),
+                                    (64, 512, 1536))],
     }
     ffn_phase_launches = ff.launches
     for name, rows in shapes.items():

@@ -10,12 +10,25 @@ hid = silu(a) b in fp32 rounded to x's dtype, and hid W_down with W_down
 (H, D) accumulated in fp32 over all of H, returned in x's dtype.
 
 The kernel (``csrc/fused_ffn.cu``) is CUDA C++ for ``sm_90a``, built by
-``ops/_build.py``; its products are its own (WMMA), the (M, 2H)
-up-projection and the (M, H) hidden never reach device memory, and a
-ragged last row tile is masked inside the kernel.  ``fused_swiglu_ffn``
-runs the plain version for a CPU tensor and launches the kernel for a CUDA
-tensor, or raises: there is no fallback.  ``launches`` counts kernel
-launches and nothing else.
+``ops/_build.py``: a 128-row tile is owned by a cluster of 8 blocks, each
+holding D/8 output columns in registers over the whole H loop; per chunk
+of 512 hidden columns each block makes a 64-column slice of the hidden
+and the 8 slices are swapped through distributed shared memory, so the
+(M, 2H) up-projection and the (M, H) hidden never reach device memory.
+LN(x) is computed once per row into an (M, D) scratch that the wrapper
+allocates.  The products are ``wgmma`` on a ring of shared-memory stages
+that TMA fills with LN(x) and the weights, read in place through three
+TMA descriptors per call; the weights K-major (``up.weight.t()``,
+``down.weight.t()``) or MN-major (contiguous matrices): no copy for
+either layout.  A ragged last row tile is masked inside the kernel.
+
+On the card the kernel takes D in ``WIDTHS`` (512, 1024, 1536) and H a
+multiple of 512 (1536, 3584 and 4096 among them), narrower than the
+earlier kernel of this file, which took any multiple of 128 for both;
+``fused_swiglu_ffn`` raises ``ValueError`` on any other shape before a
+launch.  The plain version, which a CPU tensor runs, takes every shape.
+For a CUDA tensor the wrapper launches the kernel or raises: there is no
+fallback.  ``launches`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -25,12 +38,13 @@ import torch.nn.functional as F
 
 from esmdiff_tpu_torch.ops import _build
 from esmdiff_tpu_torch.ops._build import INT, LONG, PTR
-from esmdiff_tpu_torch.ops.fused_qkv import check_rows, check_weight
+from esmdiff_tpu_torch.ops.fused_qkv import (WIDTHS, check_rows,
+                                             check_tma_weight)
 
 EPS = 1e-5
-MAX_D = 1536       # the kernel's widest row (8 warps x 12 16-column tiles)
-_ARGTYPES = [PTR, LONG, PTR, PTR, LONG, LONG, PTR, LONG, LONG, PTR, LONG,
-             INT, INT, INT]
+BH = 512           # hidden columns per chunk: 8 blocks x 64
+_ARGTYPES = [PTR, LONG, PTR, PTR, LONG, LONG, PTR, LONG, LONG, PTR, PTR,
+             LONG, INT, INT, INT]
 
 launches = 0       # kernel launches (plain-version calls are not counted)
 
@@ -47,26 +61,26 @@ def fused_swiglu_ffn(x, ln_scale, w_up, w_down):
         raise ValueError(f"x must be (M, D); got {tuple(x.shape)}")
     M, D = x.shape
     H = w_down.shape[0]
-    if D % 128 or not 0 < D <= MAX_D:
-        raise ValueError(f"the kernel takes a width that is a multiple of "
-                         f"128 up to {MAX_D}; got {D}")
+    if D not in WIDTHS:
+        raise ValueError(f"the kernel takes D in {WIDTHS}; got {D}")
     x2 = check_rows(x, D)
-    if H % 128 or H == 0:
+    if H % BH or H == 0:
         raise ValueError(f"the kernel takes a hidden width that is a "
-                         f"multiple of 128; got {H}")
-    check_weight("w_up", w_up, (D, 2 * H))
-    check_weight("w_down", w_down, (H, D))
+                         f"multiple of {BH}; got {H}")
+    check_tma_weight("w_up", w_up, (D, 2 * H))
+    check_tma_weight("w_down", w_down, (H, D))
     scale = ln_scale.to(device=x.device, dtype=torch.float32).contiguous()
     if scale.shape != (D,):
         raise ValueError(f"ln_scale must be ({D},)")
     out = torch.empty((M, D), dtype=x.dtype, device=x.device)
     if M == 0:
         return out
+    xn = torch.empty((M, D), dtype=x.dtype, device=x.device)  # LN(x) scratch
     _build.launch(
         "fused_ffn", "esmdiff_fused_swiglu_ffn_fwd", _ARGTYPES, x.device,
         x2.data_ptr(), x2.stride(0), scale.data_ptr(), w_up.data_ptr(),
-        *w_up.stride(), w_down.data_ptr(), *w_down.stride(), out.data_ptr(),
-        D, M, D, H)
+        *w_up.stride(), w_down.data_ptr(), *w_down.stride(), xn.data_ptr(),
+        out.data_ptr(), D, M, D, H)
     launches += 1
     return out
 

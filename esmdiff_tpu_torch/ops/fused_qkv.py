@@ -46,39 +46,22 @@ def ln_f32(x, scale):
     return (x - mean) * (1.0 / torch.sqrt(var + EPS)) * scale.float()
 
 
-def check_weight(name, w, shape) -> None:
-    """Raise ValueError unless ``w`` is a bf16 matrix of ``shape`` that the
-    kernels can read through its strides: one stride 1, the other a multiple
-    of 16 elements, 32-byte aligned."""
-    if tuple(w.shape) != tuple(shape):
-        raise ValueError(f"{name} must be {tuple(shape)}; got {tuple(w.shape)}")
-    if w.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the kernel takes bfloat16, got {w.dtype}")
-    s0, s1 = w.stride()
-    if not ((s0 == 1 and s1 % 16 == 0) or (s1 == 1 and s0 % 16 == 0)):
-        raise ValueError(f"{name}: the kernel needs a row- or column-major "
-                         f"matrix with a leading dimension that is a "
-                         f"multiple of 16; got strides {w.stride()}")
-    if w.data_ptr() % 32:
-        raise ValueError(f"{name}: the kernel needs 32-byte alignment")
-
-
-def check_tma_weight(w, shape) -> None:
+def check_tma_weight(name, w, shape) -> None:
     """Raise ValueError unless ``w`` is a bf16 matrix of ``shape`` that a
     TMA descriptor can describe: one stride 1 (K-major as ``weight.t()``,
     or MN-major), the other a multiple of 8 elements (16 bytes), the data
     16-byte aligned."""
     if tuple(w.shape) != tuple(shape):
-        raise ValueError(f"w_qkv must be {tuple(shape)}; got {tuple(w.shape)}")
+        raise ValueError(f"{name} must be {tuple(shape)}; got {tuple(w.shape)}")
     if w.dtype != torch.bfloat16:
-        raise ValueError(f"w_qkv: the kernel takes bfloat16, got {w.dtype}")
+        raise ValueError(f"{name}: the kernel takes bfloat16, got {w.dtype}")
     s0, s1 = w.stride()
     if not ((s0 == 1 and s1 % 8 == 0) or (s1 == 1 and s0 % 8 == 0)):
-        raise ValueError(f"w_qkv: TMA needs a row- or column-major matrix "
+        raise ValueError(f"{name}: TMA needs a row- or column-major matrix "
                          f"whose leading stride is a multiple of 16 bytes; "
                          f"got strides {w.stride()}")
     if w.data_ptr() % 16:
-        raise ValueError("w_qkv: TMA needs a 16-byte aligned address")
+        raise ValueError(f"{name}: TMA needs a 16-byte aligned address")
 
 
 def check_rows(x, D) -> torch.Tensor:
@@ -107,7 +90,7 @@ def fused_ln_qkv(x, ln_scale, w_qkv, q_ln_scale, k_ln_scale):
     if D not in WIDTHS:
         raise ValueError(f"the kernel takes D in {WIDTHS}; got {D}")
     x2 = check_rows(x, D)
-    check_tma_weight(w_qkv, (D, 3 * D))
+    check_tma_weight("w_qkv", w_qkv, (D, 3 * D))
     scales = [t.to(device=x.device, dtype=torch.float32).contiguous()
               for t in (ln_scale, q_ln_scale, k_ln_scale)]
     if any(s.shape != (D,) for s in scales):

@@ -73,3 +73,78 @@ def test_equals_the_unfused_module():
     np.testing.assert_allclose(to_np(out), to_np(ref.reshape(30, D)),
                                atol=1e-5)
 
+
+def _weight(case, K, N):
+    """A (K, N) bf16 weight in a layout a TMA descriptor may or may not
+    describe."""
+    bf = torch.bfloat16
+    flat = torch.zeros(K * N + 8, dtype=bf)
+    return {
+        "transpose_view": torch.zeros(N, K, dtype=bf).t(),   # weight.t()
+        "contiguous": torch.zeros(K, N, dtype=bf),
+        "stride_8": torch.zeros(N, K + 8, dtype=bf)[:, :K].t(),
+        "offset_16": flat[8:].view(N, K).t(),
+        "stride_4": torch.zeros(N, K + 4, dtype=bf)[:, :K].t(),
+        "offset_8": flat[4:4 + K * N].view(N, K).t(),
+        "no_unit_stride": torch.zeros(2 * N, 2 * K, dtype=bf)[::2, ::2].t(),
+        "float32": torch.zeros(N, K).t(),
+        "shape": torch.zeros(K, N + 64, dtype=bf),
+    }[case]
+
+
+D_CARD, H_CARD = 512, 1024   # a shape the card's kernel takes
+
+
+def _on_the_card(monkeypatch):
+    """Make every tensor claim to lie on the card, so that the wrapper takes
+    its kernel path; it must raise before any launch."""
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+
+
+@pytest.mark.parametrize("name", ["w_up", "w_down"])
+@pytest.mark.parametrize("case", [
+    "transpose_view", "contiguous",
+    # TMA needs 16-byte strides and alignment, not 32
+    "stride_8", "offset_16",
+])
+def test_weight_check_accepts(case, name):
+    shape = {"w_up": (D_CARD, 2 * H_CARD), "w_down": (H_CARD, D_CARD)}[name]
+    ff.check_tma_weight(name, _weight(case, *shape), shape)
+
+
+@pytest.mark.parametrize("name", ["w_up", "w_down"])
+@pytest.mark.parametrize("case", ["stride_4", "offset_8", "no_unit_stride",
+                                  "float32", "shape"])
+def test_wrapper_rejects_weights_tma_cannot_read(case, name, monkeypatch):
+    """On a tensor that claims to be on the card, a weight that TMA cannot
+    describe raises, naming it, before any launch; no plain-version
+    fallback."""
+    weights = {"w_up": _weight("transpose_view", D_CARD, 2 * H_CARD),
+               "w_down": _weight("transpose_view", H_CARD, D_CARD)}
+    weights[name] = _weight(case, *weights[name].shape)
+    x = torch.zeros(2, D_CARD, dtype=torch.bfloat16)
+    _on_the_card(monkeypatch)
+    launches = ff.launches
+    with pytest.raises(ValueError, match=name):
+        ff.fused_swiglu_ffn(x, torch.ones(D_CARD), weights["w_up"],
+                            weights["w_down"])
+    assert ff.launches == launches
+
+
+@pytest.mark.parametrize("D,H,match", [
+    (256, 1024, "D in"), (640, 1024, "D in"), (2048, 1024, "D in"),
+    (512, 128, "multiple of 512"), (512, 640, "multiple of 512"),
+    (1536, 4000, "multiple of 512"),
+])
+def test_shapes_without_a_kernel_raise_on_the_card(D, H, match, monkeypatch):
+    """A width or hidden width the kernel does not take raises before any
+    launch, on a tensor that claims to be on the card."""
+    x = torch.zeros(2, D, dtype=torch.bfloat16)
+    w_up, w_down = _weight("transpose_view", D, 2 * H), \
+        _weight("transpose_view", H, D)
+    _on_the_card(monkeypatch)
+    launches = ff.launches
+    with pytest.raises(ValueError, match=match):
+        ff.fused_swiglu_ffn(x, torch.ones(D), w_up, w_down)
+    assert ff.launches == launches

@@ -128,15 +128,15 @@ def test_fused_tree_loads_strictly():
 def test_weight_checks(bad):
     D = 128
     good = torch.zeros(3 * D, D, dtype=torch.bfloat16)
-    fq.check_weight("w", good.t(), (D, 3 * D))           # column-major view
-    fq.check_weight("w", good.t().contiguous(), (D, 3 * D))  # row-major
+    fq.check_tma_weight("w", good.t(), (D, 3 * D))  # column-major view
+    fq.check_tma_weight("w", good.t().contiguous(), (D, 3 * D))  # row-major
     w = {"shape": good,
          "dtype": good.t().float(),
          "strides": torch.zeros(3 * D, 2 * D, dtype=torch.bfloat16)[:, ::2].t(),
-         "align": torch.zeros(3 * D * D + 8, dtype=torch.bfloat16)[8:].view(
+         "align": torch.zeros(3 * D * D + 4, dtype=torch.bfloat16)[4:].view(
              3 * D, D).t()}[bad]
-    with pytest.raises(ValueError):
-        fq.check_weight("w", w, (D, 3 * D))
+    with pytest.raises(ValueError, match="^w"):
+        fq.check_tma_weight("w", w, (D, 3 * D))
 
 
 @pytest.mark.parametrize("case,ok", [
@@ -190,19 +190,18 @@ def _tma_weight(case, D=128):
 
 @pytest.mark.parametrize("case", [
     "transpose_view", "row_major",
-    # TMA needs 16 bytes, not the 32-byte strides and alignment that
-    # check_weight asks of the fused_ffn kernel's weights
+    # TMA needs 16-byte strides and alignment, not 32
     "stride_8", "offset_16",
 ])
 def test_tma_weight_check_accepts(case):
-    fq.check_tma_weight(_tma_weight(case), (128, 384))
+    fq.check_tma_weight("w_qkv", _tma_weight(case), (128, 384))
 
 
 @pytest.mark.parametrize("case", ["stride_4", "offset_8", "no_unit_stride",
                                   "float32", "shape"])
 def test_tma_weight_check_rejects(case):
-    with pytest.raises(ValueError):
-        fq.check_tma_weight(_tma_weight(case), (128, 384))
+    with pytest.raises(ValueError, match="w_qkv"):
+        fq.check_tma_weight("w_qkv", _tma_weight(case), (128, 384))
 
 
 def test_wrapper_checks_w_with_tma_rules(monkeypatch):

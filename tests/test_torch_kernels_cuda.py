@@ -89,17 +89,30 @@ def test_fused_qkv_on_card(gen, T, layout, D):
                         relative=True)
 
 
-@pytest.mark.parametrize("M", [4096, 1000])
-@pytest.mark.parametrize("layout", ["transpose_view", "contiguous"])
-def test_fused_ffn_on_card(gen, M, layout):
-    D, H = 1536, 4096
+def _padded_t(w):
+    """w.t() of a view whose leading stride is w's width + 8: 16 bytes
+    wider, not 32."""
+    n, k = w.shape
+    padded = torch.zeros(n, k + 8, device=w.device, dtype=w.dtype)
+    padded[:, :k] = w
+    return padded[:, :k].t()
+
+
+@pytest.mark.parametrize("D,H", [(512, 1536), (1024, 3072), (1536, 4096)])
+@pytest.mark.parametrize("M", [4096, 1000, 64])
+@pytest.mark.parametrize("layout", ["transpose_view", "contiguous",
+                                    "padded_view"])
+def test_fused_ffn_on_card(gen, M, layout, D, H):
     x = torch.randn(M, D, device="cuda", generator=gen, dtype=torch.bfloat16)
-    up = (torch.randn(2 * H, D, device="cuda", generator=gen)
-          * D ** -0.5).to(torch.bfloat16).t()
-    down = (torch.randn(D, H, device="cuda", generator=gen)
-            * H ** -0.5).to(torch.bfloat16).t()
+    up_w = (torch.randn(2 * H, D, device="cuda", generator=gen)
+            * D ** -0.5).to(torch.bfloat16)
+    down_w = (torch.randn(D, H, device="cuda", generator=gen)
+              * H ** -0.5).to(torch.bfloat16)
+    up, down = up_w.t(), down_w.t()
     if layout == "contiguous":
         up, down = up.contiguous(), down.contiguous()
+    elif layout == "padded_view":
+        up, down = _padded_t(up_w), _padded_t(down_w)
     scale = 1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
     _launch_and_compare(
         ff, lambda: ff.fused_swiglu_ffn(x, scale, up, down),
@@ -113,8 +126,13 @@ def test_kernels_reject_what_they_do_not_take(gen):
     s = torch.ones(64, device="cuda")
     with pytest.raises(ValueError, match="D in"):
         fq.fused_ln_qkv(x, s, w, s, s)         # D = 64: no kernel, no fallback
-    with pytest.raises(ValueError, match="multiple of 128"):
+    with pytest.raises(ValueError, match="D in"):
         ff.fused_swiglu_ffn(x[0], s, w[:, :128], w[:, :64].t())
+    x2 = torch.randn(8, 512, device="cuda", dtype=torch.bfloat16)
+    w2 = torch.randn(512, 256, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 512"):
+        ff.fused_swiglu_ffn(x2, torch.ones(512, device="cuda"), w2,
+                            w2[:, :128].t())    # H = 128: no kernel
     q = torch.randn(1, 8, 2, 32, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="Dh=64"):
         fa.flash_attention(q, q, q)
