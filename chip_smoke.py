@@ -5,24 +5,28 @@
 
 Phases, each of which fails loudly (no error is caught):
   1. build every CUDA kernel from the repo's sources (one nvcc per source,
-     all started together, sm_90a) and print each build's ptxas report;
+     all started together, sm_90a) and print each build's ptxas report,
+     and a [ptxas] line per kernel (registers, spills);
   2. hold each kernel against its plain PyTorch version on the card (bf16,
      unit-normal inputs; the attention kernels at random lengths with one
-     empty row; the fused LN/projection kernels on layer 0's weights of the
-     full-width runtime, at a row count that is not a multiple of the row
-     tile too, and at T/M 64; both also at D 512 on random weights, H 1536
-     for fused_ffn), and time the kernel, the plain version and the
-     PyTorch library call that computes the same function, or for the
-     fused projections only their products (a yardstick: the port never
-     calls it), beside the bound from the bytes and operations this run
-     needs; for the fused projections also the host time of one call (200
-     calls back to back, no synchronise);
+     empty row, at the trunk's and the decoder's shapes and longer L; the
+     fused LN/projection kernels on layer 0's weights of the full-width
+     runtime, at a row count that is not a multiple of the row tile too,
+     and at T/M 64; both also at D 512 on random weights, H 1536 for
+     fused_ffn), and time, in device time (tools/timing.py), the kernel,
+     the plain version and the PyTorch library call that computes the same
+     function, or for the fused projections only their products (a
+     yardstick: the port never calls it), beside the bound from the bytes
+     and operations this run needs, and the host time of one call (200
+     calls back to back, no synchronise); the attention kernels also with
+     the heads a block (G) and the grid they launch;
   3. the default path: a full-width ESM3Runtime.random_init (1.4B trunk +
      30 x 1280 decoder, seed 0) through the port's CLI, ddpm, 25 steps, 100
      samples of BPTI -> a 100-MODEL PDB, timed after one untimed request at
      the same shapes, with every kernel launch counted; then one full-width
      trunk forward with the kernel against the same forward with its plain
-     version (within twice the spread of two plain roundings);
+     version (within twice the spread of two plain roundings; the patched
+     ops must launch their kernels in the kernel forward only);
   4. the fused path: the same trunk weights in the configuration
      qkv_backend="fused", attn_backend="small" (the decoder and the sigma
      embedder shared), driven and checked the same way;
@@ -38,6 +42,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+from esmdiff_tpu_torch.tools.timing import device_ms, host_ms
 
 ROOT = Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, SXM, 700 W
@@ -56,21 +62,6 @@ REPLACES = {
     "fused_qkv": "esmdiff_tpu/ops/fused_qkv.py:41",
     "fused_ffn": "esmdiff_tpu/ops/fused_ffn.py:34",
 }
-
-
-def cuda_ms(torch, fn, iters=50, warmup=5):
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(flops, nbytes, fp32_flops=0.0):
@@ -128,20 +119,31 @@ def sdpa_ms(torch, q, k, v, lengths):
                        dtype=torch.bfloat16)
     bias.masked_fill_(~key_ok[:, None, None, :], -1e9)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+    return device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=bias))
 
 
+def launch_shape(fa, name, B, L, H):
+    """The heads a block (G) and the grid (query tiles, head groups, B)
+    with which ``name``'s kernel launches at this shape."""
+    G = fa.heads_per_block(name, B, L, H, "cuda")
+    return {"G": G, "grid": [-(-L // fa.TILE), -(-H // G), B]}
+
+
 def check_flash_attention(torch, fa, B, L, H, gen):
-    """Kernel vs plain version (and the SDPA yardstick) at one shape."""
+    """Kernel vs plain version (and the SDPA yardstick) at one shape, with
+    the heads a block takes (G) and the grid the kernel launches."""
     q, k, v, lengths = attention_inputs(torch, B, L, H, gen)
     res = compare(torch, "flash_attention", fa.flash_attention(q, k, v, lengths),
                   fa.flash_attention_reference(q, k, v, lengths), (B, L, H))
     return {
         "B": B, "L": L, "H": H, **res,
-        "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v, lengths)),
-        "plain_ms": cuda_ms(
-            torch, lambda: fa.flash_attention_reference(q, k, v, lengths)),
+        **launch_shape(fa, "flash_attention", B, L, H),
+        "ms": device_ms(lambda: fa.flash_attention(q, k, v, lengths)),
+        "host_ms_per_call": host_ms(
+            lambda: fa.flash_attention(q, k, v, lengths)),
+        "plain_ms": device_ms(
+            lambda: fa.flash_attention_reference(q, k, v, lengths)),
         "library_ms": sdpa_ms(torch, q, k, v, lengths),
         **bound(*attention_cost(q, lengths)),
     }
@@ -151,6 +153,7 @@ def check_small_attention(torch, sa, B, L, H, gen):
     """Rotary + attention kernel vs plain version; the yardstick is SDPA on
     q and k rotated beforehand (the rotation is not timed)."""
     from esmdiff_tpu_torch.nn.rotary import apply_rotary, rotary_tables
+    from esmdiff_tpu_torch.ops import flash_attention as fa
 
     q, k, v, lengths = attention_inputs(torch, B, L, H, gen)
     cos, sin = rotary_tables(L, 64, device="cuda")
@@ -162,27 +165,18 @@ def check_small_attention(torch, sa, B, L, H, gen):
                                    (cos.numel() + sin.numel()) * 4)
     return {
         "B": B, "L": L, "H": H, **res,
-        "ms": cuda_ms(torch, lambda: sa.small_attention(
+        **launch_shape(fa, "small_attention", B, L, H),
+        "ms": device_ms(lambda: sa.small_attention(
             q, k, v, cos, sin, lengths)),
-        "plain_ms": cuda_ms(torch, lambda: sa.small_attention_reference(
+        "host_ms_per_call": host_ms(lambda: sa.small_attention(
+            q, k, v, cos, sin, lengths)),
+        "plain_ms": device_ms(lambda: sa.small_attention_reference(
             q, k, v, cos, sin, lengths)),
         "library_ms": sdpa_ms(torch, apply_rotary(q, cos, sin),
                               apply_rotary(k, cos, sin), v, lengths),
         # the rotation: 2 multiplies and an add per q and k value, fp32
         **bound(flops, nbytes, fp32_flops=6.0 * q.numel()),
     }
-
-
-def host_ms(torch, fn, calls=200):
-    """Host wall time per call of ``calls`` back-to-back calls, with no
-    synchronise between them: what a call costs the CPU that enqueues it."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    elapsed = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return 1e3 * elapsed / calls
 
 
 def qkv_weights(torch, D, gen, attn=None):
@@ -214,10 +208,10 @@ def check_fused_qkv(torch, fq, weights, T, gen):
     nbytes = (x.numel() + weight.numel() + 3 * T * D) * 2 + 3 * D * 4
     return {
         "T": T, "D": D, **res,
-        "ms": cuda_ms(torch, lambda: fq.fused_ln_qkv(*args)),
-        "host_ms_per_call": host_ms(torch, lambda: fq.fused_ln_qkv(*args)),
-        "plain_ms": cuda_ms(torch, lambda: fq.fused_ln_qkv_reference(*args)),
-        "library_ms": cuda_ms(torch, lambda: F.linear(xn, weight)),
+        "ms": device_ms(lambda: fq.fused_ln_qkv(*args)),
+        "host_ms_per_call": host_ms(lambda: fq.fused_ln_qkv(*args)),
+        "plain_ms": device_ms(lambda: fq.fused_ln_qkv_reference(*args)),
+        "library_ms": device_ms(lambda: F.linear(xn, weight)),
         "library": "F.linear, the products only",
         # LayerNorms: about 5 fp32 operations per x and q/k value
         **bound(2.0 * T * D * 3 * D, nbytes, fp32_flops=15.0 * T * D),
@@ -254,16 +248,34 @@ def check_fused_ffn(torch, ff, weights, M, gen):
     nbytes = (2 * x.numel() + up.numel() + down.numel()) * 2 + D * 4
     return {
         "M": M, "D": D, "H": H, **res,
-        "ms": cuda_ms(torch, lambda: ff.fused_swiglu_ffn(*args)),
-        "host_ms_per_call": host_ms(torch, lambda: ff.fused_swiglu_ffn(*args)),
-        "plain_ms": cuda_ms(torch,
-                            lambda: ff.fused_swiglu_ffn_reference(*args)),
-        "library_ms": cuda_ms(torch, lambda: (
+        "ms": device_ms(lambda: ff.fused_swiglu_ffn(*args)),
+        "host_ms_per_call": host_ms(lambda: ff.fused_swiglu_ffn(*args)),
+        "plain_ms": device_ms(lambda: ff.fused_swiglu_ffn_reference(*args)),
+        "library_ms": device_ms(lambda: (
             F.linear(xn, up), F.linear(hid, down))),
         "library": "F.linear x 2, the products only",
         # LayerNorm and the gate: about 5 fp32 operations per value
         **bound(6.0 * M * D * H, nbytes, fp32_flops=5.0 * M * (D + H)),
     }
+
+
+def ptxas_summary(log):
+    """Per compiled kernel: registers, spill bytes, static shared memory
+    (the attention kernels' shared memory is dynamic)."""
+    import re
+
+    entries = []
+    for block in log.split("Compiling entry function")[1:]:
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        entries.append({
+            "entry": block.split("'")[1], "registers": int(regs.group(1)),
+            "spill_store_bytes": int(spill.group(1)),
+            "spill_load_bytes": int(spill.group(2)),
+            "static_smem_bytes": int(smem.group(1)) if smem else 0})
+    return entries
 
 
 def check_pdb(path: Path, n_models: int, n_atoms: int):
@@ -305,8 +317,16 @@ def kernel_vs_plain(torch, runtime, kernel, plain, other):
     versions, and the floor: the plain versions against the plain path's
     other rounding (the JAX package's unfused forms).  Through 48 random
     bf16 layers a 1-ulp difference grows, so the kernels are held to the
-    spread of two equally valid roundings."""
-    logits = [trunk_logits(torch, runtime, p) for p in (kernel, plain, other)]
+    spread of two equally valid roundings.  The patched ops' kernels must
+    launch in the kernel forward and in no other."""
+    ops = {module for module, _ in plain}
+    logits = []
+    for patches in (kernel, plain, other):
+        before = sum(op.launches for op in ops)
+        logits.append(trunk_logits(torch, runtime, patches))
+        if (sum(op.launches for op in ops) > before) != (patches is kernel):
+            raise AssertionError("the logits gate's patches missed the "
+                                 "kernels' call sites")
 
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item()
@@ -353,8 +373,7 @@ def main() -> int:
     from esmdiff_tpu_torch.api.generation import plan_batches
     from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
     from esmdiff_tpu_torch.models.esm3 import ESM3, ESM3Config, esm3_open_small
-    from esmdiff_tpu_torch.nn import attention as attention_module
-    from esmdiff_tpu_torch.nn import layers as layers_module
+    from esmdiff_tpu_torch.nn.attention import plain_attention_with_lengths
     from esmdiff_tpu_torch.nn.layers import cast_matmul_weights
     from esmdiff_tpu_torch.nn.rotary import apply_rotary
     from esmdiff_tpu_torch.ops import _build
@@ -378,6 +397,8 @@ def main() -> int:
     for name in KERNELS:
         print(f"[build] {name}.cu ptxas:\n{_build.logs[name].strip()}",
               flush=True)
+        for entry in ptxas_summary(_build.logs[name]):
+            print(f"[ptxas] {name} " + json.dumps(entry), flush=True)
 
     t0 = time.time()
     runtime = ESM3Runtime.random_init(
@@ -388,8 +409,9 @@ def main() -> int:
     layer0 = runtime.trunk.transformer.blocks[0]
 
     # 2. kernels against their plain versions: the trunk's and decoder's
-    # attention shapes (B 64 L 64 H 24; B 32 L 64 H 20) and the JAX
-    # package's own longer lengths; the projections at the trunk's T = 4096
+    # attention shapes (B 64 L 64 H 24; B 32 L 64 H 20), the JAX
+    # package's own longer lengths, and L 2048 (past the longest K a block
+    # keeps in shared memory); the projections at the trunk's T = 4096
     # tokens (64 x 64), at 1000 (not a multiple of their row tiles) and
     # below one row tile (64), and at their narrowest width (D 512, random
     # weights; fused_ffn at H 1536, the SwiGLU hidden width of D 512)
@@ -398,10 +420,12 @@ def main() -> int:
     shapes = {
         "flash_attention": [check_flash_attention(torch, fa, B, L, H, gen)
                             for B, L, H in ((64, 64, 24), (32, 64, 20),
-                                            (16, 512, 24), (4, 1024, 24))],
+                                            (16, 512, 24), (4, 1024, 24),
+                                            (2, 2048, 24))],
         "small_attention": [check_small_attention(torch, sa, B, L, H, gen)
-                            for B, L, H in ((64, 64, 24), (32, 128, 24),
-                                            (16, 512, 24))],
+                            for B, L, H in ((64, 64, 24), (32, 64, 20),
+                                            (32, 128, 24), (16, 512, 24),
+                                            (2, 2048, 24))],
         "fused_qkv": [check_fused_qkv(
             torch, fq, qkv_weights(
                 torch, D, gen,
@@ -437,12 +461,8 @@ def main() -> int:
         ROOT / "output" / "chip_smoke")
     rel, floor = kernel_vs_plain(
         torch, runtime,
-        {}, {(attention_module, "flash_attention"):
-             fa.flash_attention_reference},
-        {(attention_module, "flash_attention"): lambda q, k, v, lens:
-            attention_module.plain_attention(q, k, v, mask=(
-                torch.arange(q.shape[1], device="cuda")[None, :]
-                < lens[:, None])[:, None, None, :])})
+        {}, {(fa, "flash_attention"): fa.flash_attention_reference},
+        {(fa, "flash_attention"): plain_attention_with_lengths})
     if not rel <= 2 * floor:
         raise AssertionError(f"full-width trunk logits, kernel vs plain "
                              f"version: relative L2 {rel}, more than twice "
@@ -473,28 +493,17 @@ def main() -> int:
          "fused_qkv": trunk_launches, "fused_ffn": 0},
         ROOT / "output" / "chip_smoke_fused")
 
-    def qkv_rounded_first(x, ln_scale, w, q_scale, k_scale):
-        # the unfused path's rounding: the product is bf16 before the q/k LN
-        D = x.shape[-1]
-        y = (fq.ln_f32(x, ln_scale).to(w.dtype) @ w).float()
-        return torch.cat([fq.ln_f32(y[..., :D], q_scale),
-                          fq.ln_f32(y[..., D:2 * D], k_scale),
-                          y[..., 2 * D:]], dim=-1).to(x.dtype)
-
     def small_normalised_first(q, k, v, cos, sin, lens):
         # the JAX _xla_reference: p normalised before its bf16 cast
-        key_ok = (torch.arange(q.shape[1], device="cuda")[None, :]
-                  < lens[:, None])
-        return attention_module.plain_attention(
-            apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v,
-            mask=key_ok[:, None, None, :])
+        return plain_attention_with_lengths(
+            apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v, lens)
 
     f_rel, f_floor = kernel_vs_plain(
         torch, fused_rt, {},
-        {(layers_module, "fused_ln_qkv"): fq.fused_ln_qkv_reference,
-         (layers_module, "small_attention"): sa.small_attention_reference},
-        {(layers_module, "fused_ln_qkv"): qkv_rounded_first,
-         (layers_module, "small_attention"): small_normalised_first})
+        {(fq, "fused_ln_qkv"): fq.fused_ln_qkv_reference,
+         (sa, "small_attention"): sa.small_attention_reference},
+        {(fq, "fused_ln_qkv"): fq.ln_qkv_unfused,
+         (sa, "small_attention"): small_normalised_first})
     if not f_rel <= 2 * f_floor:
         raise AssertionError(f"full-width fused-config trunk logits, kernels "
                              f"vs plain versions: relative L2 {f_rel}, more "

@@ -22,19 +22,23 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // 16-byte asynchronous copy from device to shared memory (cp.async, L2
-// only); both addresses 16-byte aligned.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+// only); both addresses 16-byte aligned.  With `valid` false nothing is
+// read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+// Waits until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Allows `smem` bytes of dynamic shared memory for `kernel`.

@@ -22,10 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from esmdiff_tpu_torch.ops.fused_qkv import fused_ln_qkv
-from esmdiff_tpu_torch.ops.small_attention import small_attention
+from esmdiff_tpu_torch.ops import fused_qkv as qkv_ops
+from esmdiff_tpu_torch.ops import small_attention as small_ops
 
-from .attention import dot_product_attention
+from .attention import dot_product_attention, kernel_op
 from .rotary import apply_rotary
 
 # the values the JAX package's ESM3Config takes
@@ -85,9 +85,12 @@ class MultiHeadAttention(nn.Module):
 
     qkv_backend: "xla" = LayerNorm, Dense and q/k LayerNorm as separate
     ops; "fused" = one kernel (``ops/fused_qkv.py``) on the same parameters.
-    attn_backend: "auto" and "flash" = the flash kernel
-    (``ops/flash_attention.py``); "small" = rotary fused into the attention
-    kernel (``ops/small_attention.py``); "xla" = ``plain_attention``.
+    attn_backend: "small" = rotary fused into the attention kernel
+    (``ops/small_attention.py``) when there is no mask, else rotary and
+    ``plain_attention``, as in JAX; "auto", "flash" and "xla" = rotary, then
+    ``dot_product_attention`` with that backend.  When autograd records,
+    the kernels are reached through their ``autograd.Function``s, so their
+    outputs carry gradients (``kernel_op``).
     """
 
     def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16,
@@ -107,14 +110,14 @@ class MultiHeadAttention(nn.Module):
         self.k_ln = LayerNorm(d_model)
         self.out = Dense(d_model, d_model, use_bias=False, dtype=dtype)
 
-    def forward(self, x, rot_cos, rot_sin, lengths=None):
+    def forward(self, x, rot_cos, rot_sin, mask=None, lengths=None):
         B, L, _ = x.shape
         dh = self.d_model // self.n_heads
         if self.qkv_backend == "fused":
             # weight.t() is a (D, 3D) view: the kernel reads it in place
-            qkv = fused_ln_qkv(x, self.ln.scale,
-                               self.qkv.weight.t().to(self.qkv.dtype),
-                               self.q_ln.scale, self.k_ln.scale)
+            qkv = kernel_op(qkv_ops.FusedLnQkvFunction, qkv_ops.fused_ln_qkv)(
+                x, self.ln.scale, self.qkv.weight.t().to(self.qkv.dtype),
+                self.q_ln.scale, self.k_ln.scale)
             q, k, v = qkv.split(self.d_model, dim=-1)
         else:
             q, k, v = self.qkv(self.ln(x)).split(self.d_model, dim=-1)
@@ -122,14 +125,17 @@ class MultiHeadAttention(nn.Module):
         q = q.reshape(B, L, self.n_heads, dh)
         k = k.reshape(B, L, self.n_heads, dh)
         v = v.reshape(B, L, self.n_heads, dh)
-        if self.attn_backend == "small":
-            o = small_attention(q, k, v, rot_cos, rot_sin, lengths)
+        if self.attn_backend == "small" and mask is None:
+            o = kernel_op(small_ops.SmallAttentionFunction,
+                          small_ops.small_attention)(q, k, v, rot_cos,
+                                                     rot_sin, lengths)
         else:
             q = apply_rotary(q, rot_cos, rot_sin)
             k = apply_rotary(k, rot_cos, rot_sin)
             o = dot_product_attention(
-                q, k, v, lengths=lengths,
-                backend="xla" if self.attn_backend == "xla" else "flash")
+                q, k, v, mask=mask, lengths=lengths,
+                backend="xla" if self.attn_backend == "small"
+                else self.attn_backend)
         return self.out(o.reshape(B, L, self.d_model))
 
 

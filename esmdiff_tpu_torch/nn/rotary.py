@@ -35,3 +35,14 @@ def apply_rotary(x, cos, sin):
     sin = sin[None, :, None, :]
     xf = x.to(cos.dtype)
     return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
+
+
+def apply_rotary_per_term(x, cos, sin):
+    """``apply_rotary``'s value, with each term promoted to the tables'
+    dtype on its own, as JAX promotes them: a backward through it in bf16
+    rounds each term's gradient to x's dtype before the two are added, as
+    JAX's does.  For recomputes under a backward; it converts x twice."""
+    cos = cos[None, :, None, :]
+    sin = sin[None, :, None, :]
+    return (x.to(cos.dtype) * cos
+            + _rotate_half(x).to(cos.dtype) * sin).to(x.dtype)

@@ -9,12 +9,16 @@ output by 1/sum(p).  A row with lengths[b] == 0 therefore gets the mean of V
 over all L rows, as in JAX.
 
 The kernel (``csrc/flash_attention.cu`` over ``csrc/attention_tiles.cuh``)
-is CUDA C++ for ``sm_90a``, built by ``ops/_build.py``.  Its bound on an
-H100 and what its design does about it are in the sources' headers: at the
-main path's L (64) the bytes bound it, so it reads the native (B, L, H, Dh)
-strides directly and streams K/V in 64-key tiles (two passes, so p is
-rounded to bf16 at the same point as in JAX), instead of the TPU kernel's
-whole-K/V-resident (B*H, L, Dh) layout.
+is CUDA C++ for ``sm_90a``, built by ``ops/_build.py``.  At the main path's
+L (64) the bytes of q, k, v and o bound it on an H100, so it reads the
+native (B, L, H, Dh) strides in place and makes one pass: a block takes one
+64-query tile of one batch row for G heads (``pick_group``), with the next
+head's q, k and v in flight while one is computed, and the scores and p
+never leave registers (``mma.sync``).  At 64 < L <= 1024 a block keeps
+the whole K of its (b, h) in shared memory and sweeps it twice (the row
+max, then p against that final max, with V streamed); above 1024 both
+sweeps stream K.  So p is rounded to bf16 exactly where the TPU kernel
+rounds it, at every L.
 
 ``flash_attention`` runs the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor, or raises: there is no fallback.  ``launches``
@@ -29,9 +33,15 @@ from esmdiff_tpu_torch.ops import _build
 from esmdiff_tpu_torch.ops._build import INT, LONG, PTR
 
 HEAD_DIM = 64
-_ARGTYPES = [PTR] * 5 + [INT] * 3 + [LONG] * 12
+TILE = 64          # query rows a block takes; keys a single pass holds
+# blocks of the one-pass (L <= TILE) kernel that one SM holds, as
+# csrc/attention_tiles.cuh fixes them: __launch_bounds__ and the shared
+# memory a block (flash 54 KB, small 88 KB with its rotary tables)
+BLOCKS_PER_SM = {"flash_attention": 4, "small_attention": 2}
 
 launches = 0       # kernel launches (plain-version calls are not counted)
+ARGTYPES = {"flash_attention": [PTR] * 5 + [INT] * 4 + [LONG] * 12,
+            "small_attention": [PTR] * 7 + [INT] * 4 + [LONG] * 12}
 
 
 def check_kernel_args(q, k, v, lengths=None) -> None:
@@ -67,13 +77,30 @@ def kernel_lengths(q, lengths):
     return lengths.to(device=q.device, dtype=torch.int32).contiguous()
 
 
-def flash_attention(q, k, v, lengths=None):
-    """q, k, v: (B, L, H, Dh) -> (B, L, H, Dh); lengths: optional (B,)."""
-    global launches
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
+def pick_group(B: int, L: int, H: int, slots: int) -> int:
+    """Heads per block G.  At L > ``TILE`` a block holds (or streams) one
+    head's whole K, so G = 1.  At L <= ``TILE`` the smallest divisor of H whose B * H / G
+    blocks fit in one wave of ``slots`` (SMs x resident blocks an SM): every
+    block is resident from the start, with the most blocks (and so the
+    most loads in flight) that leaves no ragged last wave."""
+    if L > TILE:
+        return 1
+    for g in range(1, H + 1):
+        if H % g == 0 and B * (H // g) <= slots:
+            return g
+    return H
+
+
+def heads_per_block(name: str, B: int, L: int, H: int, device) -> int:
+    """G for ``name``'s kernel at this shape: ``pick_group`` over one wave
+    of ``device``'s SMs x ``BLOCKS_PER_SM``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return pick_group(B, L, H, sms * BLOCKS_PER_SM[name])
+
+
+def launch_attention(name: str, q, k, v, lengths, *tables):
+    """Check the arguments, launch ``name``'s kernel (``tables`` are its
+    extra device pointers, before B) and return the output."""
     check_kernel_args(q, k, v, lengths)
     B, L, H, _ = q.shape
     lengths = kernel_lengths(q, lengths)
@@ -81,10 +108,22 @@ def flash_attention(q, k, v, lengths=None):
     if out.numel() == 0:
         return out
     _build.launch(
-        "flash_attention", "esmdiff_flash_attention_fwd", _ARGTYPES, q.device,
+        name, f"esmdiff_{name}_fwd", ARGTYPES[name], q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lengths.data_ptr(), B, L, H,
+        lengths.data_ptr(), *(t.data_ptr() for t in tables), B, L, H,
+        heads_per_block(name, B, L, H, q.device),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    return out
+
+
+def flash_attention(q, k, v, lengths=None):
+    """q, k, v: (B, L, H, Dh) -> (B, L, H, Dh); lengths: optional (B,)."""
+    global launches
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    out = launch_attention("flash_attention", q, k, v, lengths)
     launches += 1
     return out
 
@@ -106,8 +145,10 @@ def flash_attention_reference(q, k, v, lengths=None):
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable ``flash_attention``: the forward runs the kernel (or
-    the plain version on the CPU), the backward recomputes through the plain
-    version — the counterpart of the JAX ``custom_vjp``."""
+    the plain version on the CPU), the backward recomputes through
+    ``plain_attention`` with ``lengths`` as a key mask, which normalises p
+    before its cast — the JAX ``custom_vjp``'s
+    ``_xla_attention_with_lengths``."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths=None):
@@ -116,9 +157,12 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        # imported here: nn.attention dispatches to this module
+        from esmdiff_tpu_torch.nn.attention import plain_attention_with_lengths
+
         q, k, v, lengths = ctx.saved_tensors
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = flash_attention_reference(*inputs, lengths)
+            out = plain_attention_with_lengths(*inputs, lengths)
             dq, dk, dv = torch.autograd.grad(out, inputs, grad)
         return dq, dk, dv, None

@@ -8,8 +8,9 @@ rounded to W's dtype, the product with the (D, 3D) ``w_qkv`` accumulated in
 fp32, and a second fp32 LayerNorm over the D outputs of q and of k (not v)
 with ``q_ln_scale`` / ``k_ln_scale``, returning (B, L, 3D) in x's dtype.
 The q/k LayerNorm takes the fp32 product, as the TPU kernel does; the
-unfused path (and the JAX ``_reference_ln_qkv``, its backward) rounds the
-product to bf16 first, and the two agree in fp32.
+unfused path (and the JAX ``_reference_ln_qkv``, its backward, here
+``ln_qkv_unfused``) rounds the product to bf16 first, and the two agree in
+fp32.
 
 The kernel (``csrc/fused_qkv.cu``) is CUDA C++ for ``sm_90a``, built by
 ``ops/_build.py``: 192-row tiles whose D output columns are split over a
@@ -117,10 +118,22 @@ def fused_ln_qkv_reference(x, ln_scale, w_qkv, q_ln_scale, k_ln_scale):
     return torch.cat([q, k, y[..., 2 * D:]], dim=-1).to(x.dtype)
 
 
+def ln_qkv_unfused(x, ln_scale, w_qkv, q_ln_scale, k_ln_scale):
+    """The JAX ``_reference_ln_qkv``: the same function with the product
+    rounded to x's dtype before the q/k LayerNorm, as the unfused path
+    rounds it."""
+    D = x.shape[-1]
+    xn = ln_f32(x, ln_scale).to(x.dtype)
+    y = (xn @ w_qkv.to(x.dtype)).float()
+    q = ln_f32(y[..., :D], q_ln_scale)
+    k = ln_f32(y[..., D:2 * D], k_ln_scale)
+    return torch.cat([q, k, y[..., 2 * D:]], dim=-1).to(x.dtype)
+
+
 class FusedLnQkvFunction(torch.autograd.Function):
     """Differentiable ``fused_ln_qkv``: the forward runs the kernel (or the
-    plain version on the CPU), the backward recomputes through the plain
-    version — the counterpart of the JAX ``custom_vjp``."""
+    plain version on the CPU), the backward recomputes through
+    ``ln_qkv_unfused`` — the JAX ``custom_vjp``'s ``_reference_ln_qkv``."""
 
     @staticmethod
     def forward(ctx, x, ln_scale, w_qkv, q_ln_scale, k_ln_scale):
@@ -131,5 +144,5 @@ class FusedLnQkvFunction(torch.autograd.Function):
     def backward(ctx, grad):
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            out = fused_ln_qkv_reference(*inputs)
+            out = ln_qkv_unfused(*inputs)
             return torch.autograd.grad(out, inputs, grad)

@@ -14,7 +14,9 @@ backward) normalises first, and the two agree in fp32.
 
 The kernel (``csrc/small_attention.cu`` over ``csrc/attention_tiles.cuh``)
 is CUDA C++ for ``sm_90a``, built by ``ops/_build.py``: the flash kernel's
-tiling, with each q and k tile rotated as it is copied into shared memory.
+design, with the block's cos and sin rows staged in shared memory once and
+each q and k row rotated in place there, once per block, before the
+products; the rotated q and k never exist in device memory.
 ``small_attention`` runs the plain version for a CPU tensor and launches
 the kernel for a CUDA tensor, or raises: there is no fallback.
 ``launches`` counts kernel launches and nothing else.
@@ -24,14 +26,9 @@ from __future__ import annotations
 
 import torch
 
-from esmdiff_tpu_torch.nn.rotary import apply_rotary
-from esmdiff_tpu_torch.ops import _build
-from esmdiff_tpu_torch.ops._build import INT, LONG, PTR
-from esmdiff_tpu_torch.ops.flash_attention import (check_kernel_args,
-                                                   flash_attention_reference,
-                                                   kernel_lengths)
-
-_ARGTYPES = [PTR] * 7 + [INT] * 3 + [LONG] * 12
+from esmdiff_tpu_torch.nn.rotary import apply_rotary, apply_rotary_per_term
+from esmdiff_tpu_torch.ops.flash_attention import (flash_attention_reference,
+                                                   launch_attention)
 
 launches = 0       # kernel launches (plain-version calls are not counted)
 
@@ -43,22 +40,13 @@ def small_attention(q, k, v, cos, sin, lengths=None):
         return small_attention_reference(q, k, v, cos, sin, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    check_kernel_args(q, k, v, lengths)
-    B, L, H, Dh = q.shape
+    L, Dh = q.shape[1], q.shape[-1]
     if cos.shape != (L, Dh) or sin.shape != (L, Dh):
         raise ValueError(f"cos/sin must be ({L}, {Dh}); got "
                          f"{tuple(cos.shape)}, {tuple(sin.shape)}")
     cos, sin = (t.to(device=q.device, dtype=torch.float32).contiguous()
                 for t in (cos, sin))
-    lengths = kernel_lengths(q, lengths)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    _build.launch(
-        "small_attention", "esmdiff_small_attention_fwd", _ARGTYPES, q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lengths.data_ptr(), cos.data_ptr(), sin.data_ptr(), B, L, H,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    out = launch_attention("small_attention", q, k, v, lengths, cos, sin)
     launches += 1
     return out
 
@@ -73,8 +61,10 @@ def small_attention_reference(q, k, v, cos, sin, lengths=None):
 
 class SmallAttentionFunction(torch.autograd.Function):
     """Differentiable ``small_attention``: the forward runs the kernel (or
-    the plain version on the CPU), the backward recomputes through the plain
-    version — the counterpart of the JAX ``custom_vjp``."""
+    the plain version on the CPU), the backward recomputes rotary (each
+    term promoted on its own) and then ``plain_attention`` with ``lengths``
+    as a key mask, which normalises p before its cast — the JAX
+    ``custom_vjp``'s ``_xla_reference``, rounded as JAX rounds it in bf16."""
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, lengths=None):
@@ -83,9 +73,14 @@ class SmallAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        from esmdiff_tpu_torch.nn.attention import plain_attention_with_lengths
+
         q, k, v, cos, sin, lengths = ctx.saved_tensors
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_() for t in (q, k, v, cos, sin)]
-            out = small_attention_reference(*inputs, lengths)
+            qi, ki, vi, ci, si = inputs
+            out = plain_attention_with_lengths(
+                apply_rotary_per_term(qi, ci, si),
+                apply_rotary_per_term(ki, ci, si), vi, lengths)
             grads = torch.autograd.grad(out, inputs, grad)
         return (*grads, None)

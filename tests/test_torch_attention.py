@@ -1,6 +1,10 @@
 """Port attention (plain version + dispatcher + kernel wrapper) against the
 JAX package's flash kernel (interpret mode) and its ``_xla_attention``."""
 
+import re
+from pathlib import Path
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,7 +77,8 @@ def test_mask_takes_plain_path(monkeypatch):
     def _no_kernel_path(*a, **kw):
         raise AssertionError("a mask must not reach the kernel path")
 
-    monkeypatch.setattr(port_attn, "flash_attention", _no_kernel_path)
+    # the kernel path reaches the op through FlashAttentionFunction
+    monkeypatch.setattr(fa, "flash_attention", _no_kernel_path)
     out = port_attn.dot_product_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         mask=mask)
@@ -118,6 +123,56 @@ def test_kernel_argument_checks(bad):
         fa.check_kernel_args(q, k, v, lengths)
 
 
+@pytest.mark.parametrize("L", [64, 1024, 1025, 2048, 4096])
+def test_kernel_takes_every_length(L):
+    """No length limit: K stays in shared memory up to L 1024 and streams
+    through it above."""
+    x = torch.zeros(1, L, 2, 64, dtype=torch.bfloat16)
+    fa.check_kernel_args(x, x.clone(), x.clone(), torch.tensor([L]))
+
+
+def test_blocks_per_sm_match_the_kernels():
+    """BLOCKS_PER_SM is what csrc/attention_tiles.cuh fixes for the
+    one-pass kernel: its __launch_bounds__, and shared memory for that many
+    blocks within the 227 KB an H100 SM gives them."""
+    src = (Path(fa.__file__).parents[1] / "csrc"
+           / "attention_tiles.cuh").read_text()
+    small, flash = re.search(
+        r"__launch_bounds__\(THREADS, kRotary \? (\d+) : (\d+)\)\s*"
+        r"attention_short", src).groups()
+    assert fa.BLOCKS_PER_SM == {"flash_attention": int(flash),
+                                "small_attention": int(small)}
+    tile = 64 * (64 + 8) * 2                 # one bf16 tile, padded rows
+    table = 2 * 64 * (64 + 4) * 4            # cos and sin rows, fp32
+    for name, smem in (("flash_attention", 6 * tile),
+                       ("small_attention", 6 * tile + table)):
+        n = fa.BLOCKS_PER_SM[name]
+        assert n * smem <= 227 * 1024 < (n + 1) * smem
+
+
+def test_kernel_op_takes_the_function_only_when_autograd_records(
+        monkeypatch):
+    """Under no_grad the dispatcher calls the kernel's wrapper itself;
+    with autograd on, its autograd.Function, whose output has a grad_fn."""
+    calls, function = [], fa.FlashAttentionFunction
+
+    class Recording(function):
+        @staticmethod
+        def forward(ctx, *args):
+            calls.append(len(args))
+            return function.forward(ctx, *args)
+
+    monkeypatch.setattr(fa, "FlashAttentionFunction", Recording)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(2, 16))
+    lengths = torch.tensor([16, 5], dtype=torch.int32)
+    with torch.no_grad():
+        ref = port_attn.dot_product_attention(q, k, v, lengths=lengths)
+    assert calls == [] and ref.grad_fn is None
+    out = port_attn.dot_product_attention(q, k, v, lengths=lengths)
+    assert calls == [4] and out.grad_fn is not None
+    np.testing.assert_array_equal(to_np(out.detach()), to_np(ref))
+
+
 def test_autograd_function_recomputes_through_plain_version():
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(2, 24))
     lengths = torch.tensor([24, 9], dtype=torch.int32)
@@ -131,3 +186,45 @@ def test_autograd_function_recomputes_through_plain_version():
     for a, b in zip(grads, ref_grads):
         np.testing.assert_allclose(to_np(a), to_np(b), atol=1e-5)
 
+
+
+def assert_bf16_grads_match(grads, ref):
+    """bf16 gradients against JAX's: each entry within one bf16 ulp of
+    max(1, |ref|) and mean |d| <= 1e-5.  The cast-before-normalise
+    recompute misses the mean by 30x (about 3e-4 at these shapes)."""
+    for a, b in zip(grads, ref):
+        a, b = to_np(a.float()), np.asarray(b, np.float32)
+        d = np.abs(a - b)
+        assert (d <= 2.0 ** -7 * np.maximum(1.0, np.abs(b))).all(), d.max()
+        assert d.mean() <= 1e-5, d.mean()
+
+
+def test_bf16_gradients_match_jax():
+    """The backward recomputes through plain_attention (p normalised, then
+    cast), as JAX's custom_vjp recomputes through _xla_attention."""
+    B, L = 2, 64
+    q, k, v, g = _qkv(B, L, H=3, seed=4) + _qkv(B, L, H=3, seed=5)[:1]
+    lengths = np.array([64, 29], np.int32)
+    _, vjp = jax.vjp(lambda *a: jax_flash(*a, lengths=jnp.asarray(lengths),
+                                          interpret=True),
+                     *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    ref = vjp(jnp.asarray(g, jnp.bfloat16))
+    ins = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+           for a in (q, k, v)]
+    out = fa.FlashAttentionFunction.apply(*ins, torch.from_numpy(lengths))
+    grads = torch.autograd.grad(out, ins, torch.from_numpy(g).to(
+        torch.bfloat16))
+    assert_bf16_grads_match(grads, ref)
+
+
+@pytest.mark.parametrize("B,L,H,slots,G", [
+    (64, 64, 24, 264, 6),     # the trunk, 2 blocks an SM: 256 blocks
+    (64, 64, 24, 528, 3),     # 4 blocks an SM: 512 blocks
+    (32, 64, 20, 528, 2),     # the decoder: 320 blocks
+    (32, 64, 20, 264, 4),
+    (2, 48, 3, 264, 1),       # every (b, h) its own block
+    (64, 64, 7, 100, 7),      # no divisor fits: all heads in one block
+    (16, 512, 24, 264, 1),    # L > 64: one head's whole K a block
+])
+def test_pick_group(B, L, H, slots, G):
+    assert fa.pick_group(B, L, H, slots) == G

@@ -11,7 +11,7 @@ JAX package, so on a machine with a card and no JAX it runs on its own:
 import pytest
 import torch
 
-from esmdiff_tpu_torch.nn.rotary import rotary_tables
+from esmdiff_tpu_torch.nn.rotary import apply_rotary, rotary_tables
 from esmdiff_tpu_torch.ops import flash_attention as fa
 from esmdiff_tpu_torch.ops import fused_ffn as ff
 from esmdiff_tpu_torch.ops import fused_qkv as fq
@@ -42,29 +42,107 @@ def _launch_and_compare(op, kernel, plain, relative=False):
     assert scaled.max().item() <= TOL_MAX and diff.mean().item() <= TOL_MEAN
 
 
-def _attention_inputs(B, L, H, gen):
-    q, k, v = (torch.randn(B, L, H, 64, device="cuda", generator=gen,
-                           dtype=torch.bfloat16) for _ in range(3))
+def _attention_inputs(B, L, H, gen, layout):
+    """bf16 q, k, v (B, L, H, 64): separate tensors, or strided views of one
+    (B, L, 3 * H * 64) tensor as the trunk passes them; lengths 0, 1 and L
+    in the first rows (as far as B goes), random in the rest."""
+    if layout == "qkv_views":
+        qkv = torch.randn(B, L, 3 * H * 64, device="cuda", generator=gen,
+                          dtype=torch.bfloat16)
+        q, k, v = (t.view(B, L, H, 64) for t in qkv.split(H * 64, dim=-1))
+    else:
+        q, k, v = (torch.randn(B, L, H, 64, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(3))
     lengths = torch.randint(1, L + 1, (B,), device="cuda", generator=gen,
                             dtype=torch.int32)
-    lengths[0] = 0
+    special = torch.tensor([0, 1, L], dtype=torch.int32)[:B]
+    lengths[:len(special)] = special.cuda()
     return q, k, v, lengths
 
 
-@pytest.mark.parametrize("B,L,H", [(64, 64, 24), (32, 64, 20), (4, 200, 24)])
-def test_flash_attention_on_card(gen, B, L, H):
-    q, k, v, lengths = _attention_inputs(B, L, H, gen)
+LAYOUTS = ["contiguous", "qkv_views"]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("B,L,H", [(64, 64, 24), (32, 64, 20), (4, 200, 24),
+                                   (16, 512, 24), (4, 1024, 24),
+                                   (3, 2048, 24)])
+def test_flash_attention_on_card(gen, B, L, H, layout):
+    q, k, v, lengths = _attention_inputs(B, L, H, gen, layout)
     _launch_and_compare(fa, lambda: fa.flash_attention(q, k, v, lengths),
                         lambda: fa.flash_attention_reference(q, k, v, lengths))
 
 
-@pytest.mark.parametrize("B,L,H", [(64, 64, 24), (8, 128, 24), (2, 200, 24)])
-def test_small_attention_on_card(gen, B, L, H):
-    q, k, v, lengths = _attention_inputs(B, L, H, gen)
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("B,L,H", [(64, 64, 24), (32, 64, 20), (8, 128, 24),
+                                   (2, 200, 24), (16, 512, 24),
+                                   (3, 2048, 24)])
+def test_small_attention_on_card(gen, B, L, H, layout):
+    q, k, v, lengths = _attention_inputs(B, L, H, gen, layout)
     cos, sin = rotary_tables(L, 64, device="cuda")
     _launch_and_compare(
         sa, lambda: sa.small_attention(q, k, v, cos, sin, lengths),
         lambda: sa.small_attention_reference(q, k, v, cos, sin, lengths))
+
+
+@pytest.mark.parametrize("qkv_backend,attn_backend", [
+    ("xla", "auto"), ("fused", "small"), ("xla", "small")])
+def test_trunk_gradients_on_card(gen, monkeypatch, qkv_backend, attn_backend):
+    """A 2-layer trunk at D 512 (8 heads of 64) in bf16: its parameter
+    gradients with the kernels against those with the plain versions (the
+    backward is the same plain recompute; only the forward rounds
+    differently), per parameter in relative L2, within twice the spread
+    between the plain versions and the plain path's other roundings (p
+    normalised before its cast, the QKV product rounded before the q/k
+    LayerNorm), or 1e-2.  A kernel output that carried no gradient would
+    miss the attention parameters' gradient terms entirely."""
+    from esmdiff_tpu_torch.models.esm3 import ESM3, esm3_tiny
+    from esmdiff_tpu_torch.nn.attention import plain_attention_with_lengths
+    from esmdiff_tpu_torch.nn.layers import init_params
+
+    cfg = esm3_tiny(d_model=512, n_heads=8, n_layers=2, head_type="structure",
+                    qkv_backend=qkv_backend, attn_backend=attn_backend)
+    with torch.device("cuda"):
+        trunk = ESM3(cfg)
+    init_params(trunk, torch.Generator(device="cuda").manual_seed(0))
+    B, L = 4, 64
+    seq = torch.randint(4, 24, (B, L), device="cuda", generator=gen)
+    lengths = torch.tensor([L, 50, 13, 1], dtype=torch.int32, device="cuda")
+    weight = torch.randn(B, L, cfg.n_structure_heads, device="cuda",
+                         generator=gen)
+
+    def grads(flash, small, qkv):
+        monkeypatch.setattr(fa, "flash_attention", flash)
+        monkeypatch.setattr(sa, "small_attention", small)
+        monkeypatch.setattr(fq, "fused_ln_qkv", qkv)
+        trunk.zero_grad(set_to_none=True)
+        out = trunk(sequence_tokens=seq, lengths=lengths)
+        (out.structure_logits.float() * weight).sum().backward()
+        torch.cuda.synchronize()
+        return {n: p.grad.float() for n, p in trunk.named_parameters()
+                if p.grad is not None}
+
+    def small_normalised_first(q, k, v, cos, sin, lens):
+        return plain_attention_with_lengths(
+            apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v, lens)
+
+    before = fa.launches + sa.launches + fq.launches
+    kernel = grads(fa.flash_attention, sa.small_attention, fq.fused_ln_qkv)
+    assert fa.launches + sa.launches + fq.launches > before
+    plain = grads(fa.flash_attention_reference, sa.small_attention_reference,
+                  fq.fused_ln_qkv_reference)
+    other = grads(plain_attention_with_lengths, small_normalised_first,
+                  fq.ln_qkv_unfused)
+    assert kernel.keys() == plain.keys() == other.keys()
+    assert any("attn.qkv" in n for n in plain)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    for n, g in plain.items():
+        assert torch.isfinite(kernel[n]).all()
+        assert rel(kernel[n], g) <= max(2 * rel(other[n], g), 1e-2), (
+            n, rel(kernel[n], g), rel(other[n], g))
 
 
 @pytest.mark.parametrize("D", [512, 1024, 1536])

@@ -8,12 +8,18 @@ import pytest
 import torch
 
 from esmdiff_tpu.core import constants as C
+from esmdiff_tpu.nn import attention as jattn
 from esmdiff_tpu.nn import embed as jembed
 from esmdiff_tpu.nn import layers as jl
 from esmdiff_tpu.nn import rotary as jrot
+from esmdiff_tpu_torch.models import esm3 as tesm3
+from esmdiff_tpu_torch.nn import attention as tattn
 from esmdiff_tpu_torch.nn import embed as tembed
 from esmdiff_tpu_torch.nn import layers as tl
 from esmdiff_tpu_torch.nn import rotary as trot
+from esmdiff_tpu_torch.ops import flash_attention as fa
+from esmdiff_tpu_torch.ops import fused_qkv as fq
+from esmdiff_tpu_torch.ops import small_attention as sa
 from test_torch_support import carry, perturb, to_np
 
 torch.set_num_threads(2)
@@ -117,3 +123,119 @@ def test_encode_inputs():
                    *(jnp.asarray(a) for a in ins))
     out = mod(*(torch.from_numpy(a) for a in ins))
     np.testing.assert_allclose(to_np(out), np.asarray(ref), atol=ATOL)
+
+
+def _outcome(fn):
+    """fn()'s output as numpy, or ValueError if it raised one."""
+    try:
+        return to_np(fn())
+    except ValueError:
+        return ValueError
+
+
+@pytest.mark.parametrize("case", ["mask", "bias", "lengths", "none"])
+@pytest.mark.parametrize("backend", ["auto", "flash", "small", "xla"])
+def test_dispatch_matches_jax(backend, case):
+    """Each (backend, masking) pair gives JAX's output or JAX's ValueError,
+    through ``dot_product_attention`` and through ``MultiHeadAttention``
+    (fp32, atol 2e-5).  One difference by design: "flash" with a bias
+    raises in the port, where JAX drops the bias.  "small" is a module
+    backend only; the module takes no bias."""
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((B, L, H, 16)).astype(np.float32)
+               for _ in range(3))
+    seq_id = np.array([[0] * 10 + [1] * (L - 10), [0] * L])
+    inputs = {
+        "mask": {"mask": seq_id[:, None, :, None] == seq_id[:, None, None, :]},
+        "bias": {"bias": rng.standard_normal((B, 1, L, L)).astype(np.float32)},
+        "lengths": {"lengths": np.array([L, 13], np.int32)},
+        "none": {},
+    }[case]
+    kw_j = {n: jnp.asarray(a) for n, a in inputs.items()}
+    kw_t = {n: torch.from_numpy(a) for n, a in inputs.items()}
+    pairs = []
+    if backend != "small":
+        pairs.append((
+            _outcome(lambda: jattn.dot_product_attention(
+                *map(jnp.asarray, (q, k, v)), backend=backend, **kw_j)),
+            _outcome(lambda: tattn.dot_product_attention(
+                *map(torch.from_numpy, (q, k, v)), backend=backend, **kw_t))))
+    if case != "bias":
+        x = _x((B, L, D), seed=6)
+        cos_j, sin_j = jrot.rotary_tables(L, D // H)
+        cos_t, sin_t = trot.rotary_tables(L, D // H)
+        fmod = jl.MultiHeadAttention(d_model=D, n_heads=H, dtype=jnp.float32,
+                                     attn_backend=backend)
+        params = perturb(fmod.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                                   cos_j, sin_j)["params"])
+        mod = carry(tl.MultiHeadAttention(D, H, dtype=F32,
+                                          attn_backend=backend), params)
+        with torch.no_grad():
+            pairs.append((
+                _outcome(lambda: fmod.apply({"params": params},
+                                            jnp.asarray(x), cos_j, sin_j,
+                                            **kw_j)),
+                _outcome(lambda: mod(torch.from_numpy(x), cos_t, sin_t,
+                                     **kw_t))))
+    for ref, out in pairs:
+        if (backend, case) == ("flash", "bias"):
+            assert out is ValueError and ref is not ValueError
+        elif ref is ValueError:
+            assert out is ValueError
+        else:
+            assert out is not ValueError
+            np.testing.assert_allclose(out, ref, atol=2e-5)
+
+
+# kernel ops the trunk reaches in each configuration, with their plain
+# versions
+_KERNEL_OPS = {"flash": (fa, "flash_attention", fa.flash_attention_reference),
+               "small": (sa, "small_attention", sa.small_attention_reference),
+               "fused": (fq, "fused_ln_qkv", fq.fused_ln_qkv_reference)}
+
+
+@pytest.mark.parametrize("qkv_backend,attn_backend", [
+    ("xla", "auto"), ("xla", "flash"), ("xla", "small"), ("xla", "xla"),
+    ("fused", "auto"), ("fused", "small"),
+])
+def test_trunk_gradients_survive_detached_kernel_outputs(
+        monkeypatch, qkv_backend, attn_backend):
+    """On the card a kernel's output is a fresh tensor with no grad_fn.
+    With every kernel op patched to return its plain result detached, a
+    2-layer tiny trunk's parameter gradients equal the unpatched ones
+    (fp32, atol 1e-6): the modules reach the ops through their
+    autograd.Functions."""
+    cfg = tesm3.esm3_tiny(dtype="float32", head_type="structure", n_layers=2,
+                          qkv_backend=qkv_backend, attn_backend=attn_backend)
+    trunk = tesm3.ESM3(cfg)
+    tl.init_params(trunk, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(7)
+    seq = torch.from_numpy(rng.integers(4, 24, (B, L)))
+    lengths = torch.tensor([L, 13], dtype=torch.int32)
+    weight = torch.from_numpy(rng.standard_normal(
+        (B, L, cfg.n_structure_heads)).astype(np.float32))
+
+    def grads():
+        trunk.zero_grad(set_to_none=True)
+        out = trunk(sequence_tokens=seq, lengths=lengths)
+        (out.structure_logits * weight).sum().backward()
+        return {n: p.grad.clone() for n, p in trunk.named_parameters()
+                if p.grad is not None}
+
+    ref = grads()
+    reached = set()
+    for key, (module, name, plain) in _KERNEL_OPS.items():
+        def detached(*args, _key=key, _plain=plain):
+            reached.add(_key)
+            return _plain(*args).detach()
+        monkeypatch.setattr(module, name, detached)
+    out = grads()
+    expected = {"fused"} if qkv_backend == "fused" else set()
+    expected |= {"auto": {"flash"}, "flash": {"flash"}, "small": {"small"},
+                 "xla": set()}[attn_backend]
+    assert reached == expected
+    assert out.keys() == ref.keys()
+    assert any("attn.qkv" in n for n in ref)
+    for n in ref:
+        np.testing.assert_allclose(to_np(out[n]), to_np(ref[n]), atol=1e-6,
+                                   err_msg=n)

@@ -15,6 +15,7 @@ from esmdiff_tpu_torch.models import esm3 as tesm3
 from esmdiff_tpu_torch.nn import layers as tl
 from esmdiff_tpu_torch.nn import rotary as trot
 from esmdiff_tpu_torch.ops import small_attention as sa
+from test_torch_attention import assert_bf16_grads_match
 from test_torch_support import carry, perturb, to_np
 
 torch.set_num_threads(2)
@@ -85,6 +86,29 @@ def test_gradient_parity_with_jax():
     grads = torch.autograd.grad((out ** 2).sum(), ins)
     for a, b in zip(grads, ref):
         np.testing.assert_allclose(to_np(a), np.asarray(b), atol=5e-5)
+
+
+def test_bf16_gradients_match_jax():
+    """The backward recomputes rotary and then plain_attention (p
+    normalised, then cast), as JAX's custom_vjp recomputes through
+    _xla_reference; the recompute's rotary promotes each term on its own,
+    as JAX does, so the bf16 rounding of dq and dk matches too."""
+    L, lengths = 64, np.array([64, 29], np.int32)
+    q, k, v = _qkv(2, L, H=3, seed=4)
+    g = _qkv(2, L, H=3, seed=5)[0]
+    (cos_j, sin_j), (cos_t, sin_t) = _both(L)
+    _, vjp = jax.vjp(lambda *a: jax_small(*a, cos_j, sin_j,
+                                          jnp.asarray(lengths),
+                                          interpret=True),
+                     *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    ref = vjp(jnp.asarray(g, jnp.bfloat16))
+    ins = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+           for a in (q, k, v)]
+    out = sa.SmallAttentionFunction.apply(*ins, cos_t, sin_t,
+                                          torch.from_numpy(lengths))
+    grads = torch.autograd.grad(out, ins, torch.from_numpy(g).to(
+        torch.bfloat16))
+    assert_bf16_grads_match(grads, ref)
 
 
 @pytest.mark.parametrize("port_backend,jax_backend", [
