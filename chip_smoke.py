@@ -21,16 +21,39 @@ Phases, each of which fails loudly (no error is caught):
      calls back to back, no synchronise); the attention kernels also with
      the heads a block (G) and the grid they launch;
   3. the default path: a full-width ESM3Runtime.random_init (1.4B trunk +
-     30 x 1280 decoder, seed 0) through the port's CLI, ddpm, 25 steps, 100
-     samples of BPTI -> a 100-MODEL PDB, timed after one untimed request at
-     the same shapes, with every kernel launch counted; then one full-width
-     trunk forward with the kernel against the same forward with its plain
-     version (within twice the spread of two plain roundings; the patched
-     ops must launch their kernels in the kernel forward only);
+     30 x 1280 decoder, seed 0) through the port's CLI as it ships, ddpm,
+     25 steps, 100 samples each of two targets -> a 100-MODEL PDB each:
+     BPTI (bucket 64, where the sampler packs two rows to a device row and
+     packed rows take the plain masked attention, so only the decoder runs
+     the kernel) and a 118-residue chain (bucket 128, pack 1, so every trunk
+     layer runs it); one untimed request over both, then each target timed
+     with every kernel launch counted against its plan; then one
+     full-width trunk forward with the kernel against the same forward
+     with its plain version (within twice the spread of two plain
+     roundings; the patched ops must launch their kernels in the kernel
+     forward only);
   4. the fused path: the same trunk weights in the configuration
      qkv_backend="fused", attn_backend="small" (the decoder and the sigma
      embedder shared), driven and checked the same way;
-  5. print the card, each path's numbers, the kernels line, and as the last
+  5. the serve path: a full-width runtime built as the port's server builds
+     it (``--quant int8``: the trunk quantized from the same seed's float32
+     weights, W8A8), ``int8_dot`` on the card against its plain version bit
+     for bit at the trunk's four products (T 4096), the int8 trunk's
+     logits packed (pack 2) against unpacked at B 64, L 64 (against the
+     unpacked plain path within the spread of two plain roundings, against
+     the kernel path within twice it, and two planted faults, a segment
+     leak and a bf16 packed trunk, read above that limit), then the port's
+     server on 127.0.0.1 over HTTP: /warmup (with a cross-length packed
+     run), BPTI x 100 (the plan [64, 32, 8], pack 2: a 100-MODEL PDB),
+     three concurrent requests of 58, 120 and 250 residues coalesced into
+     one group, a bad request (400) and /healthz, with exact launch counts;
+     and, printed without a gate, int8 against bf16 logits, BPTI's ms per
+     step at JAX's pack against pack 1, the int8 trunk's ms per step at row
+     widths T 64, 128 and 256, the int8 products' time against bf16
+     ``F.linear``, and the host and device time of one step's draws for 64
+     samples (a generator a row, and the packed engine's per-segment
+     placement);
+  6. print the card, each path's numbers, the kernels line, and as the last
      line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA card or without the
 rest of the repo beside it.
@@ -38,15 +61,20 @@ rest of the repo beside it.
 
 import json
 import math
+import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 from esmdiff_tpu_torch.tools.timing import device_ms, host_ms
 
 ROOT = Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, SXM, 700 W
+H100_INT8_OPS = 1979e12      # int8 tensor-core peak, dense
 H100_FP32_FLOPS = 67e12      # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12   # HBM3
 # kernel vs plain version, bf16: max |d| <= TOL_MAX and mean |d| <= TOL_MEAN;
@@ -54,6 +82,8 @@ H100_BYTES_PER_S = 3.35e12   # HBM3
 # max(1, |plain|), since one bf16 ulp at |y| >= 4 is 0.03
 TOL_MAX, TOL_MEAN = 2e-2, 2e-3
 TARGET = "data/targets/bpti"
+# 118 residues: bucket 128, where the sampler does not pack
+L128_TARGET = Path("data/targets/apo/1jm4.B.pdb")
 NUM_SAMPLES, NUM_STEPS, DECODE_BATCH = 100, 25, 32
 KERNELS = ("flash_attention", "small_attention", "fused_qkv", "fused_ffn")
 REPLACES = {
@@ -278,14 +308,14 @@ def ptxas_summary(log):
     return entries
 
 
-def check_pdb(path: Path, n_models: int, n_atoms: int):
-    lines = path.read_text().splitlines()
+def check_pdb(text: str, n_models: int, n_atoms: int, where: str):
+    lines = text.splitlines()
     models = sum(line.startswith("MODEL") for line in lines)
     atoms = [line for line in lines if line.startswith("ATOM")]
     xyz = [float(a[c:c + 8]) for a in atoms for c in (30, 38, 46)]
     if models != n_models or len(atoms) != n_atoms or not all(
             math.isfinite(x) for x in xyz):
-        raise AssertionError(f"{path}: {models} MODELs (want {n_models}), "
+        raise AssertionError(f"{where}: {models} MODELs (want {n_models}), "
                              f"{len(atoms)} atoms (want {n_atoms})")
 
 
@@ -334,33 +364,442 @@ def kernel_vs_plain(torch, runtime, kernel, plain, other):
     return rel(logits[0], logits[1]), rel(logits[2], logits[1])
 
 
-def drive(torch, runtime, ops, name, expected, out_dir):
-    """One untimed request, then the counted and timed one through the CLI;
-    checks each kernel's launches and the PDB, returns the path's numbers."""
+def path_launches(trunk_cfg, dec_layers, lw, fused):
+    """Each kernel's launches for one target's request through the CLI
+    (plan "single"), from its plan: a trunk forward per step and batch,
+    each layer's attention on the kernel only where the batch's pack
+    factor is 1 (packed rows take the plain masked path), and one decoder
+    launch per layer and decode chunk."""
+    from esmdiff_tpu_torch.api.generation import bucket_length, plan_batches
+    from esmdiff_tpu_torch.ops.packing import pack_factor
+
+    plan = plan_batches(lw, NUM_SAMPLES, policy="single")
+    forwards = trunk_cfg.n_layers * (NUM_STEPS + 1)
+    unpacked = forwards * sum(pack_factor(b, bucket_length(lw)) == 1
+                              for b in plan)
+    decoder = dec_layers * -(-NUM_SAMPLES // DECODE_BATCH)
+    if not fused:
+        return {"flash_attention": unpacked + decoder, "small_attention": 0,
+                "fused_qkv": 0, "fused_ffn": 0}
+    return {"flash_attention": decoder, "small_attention": unpacked,
+            "fused_qkv": forwards * len(plan), "fused_ffn": 0}
+
+
+def drive(torch, runtime, ops, name, targets, out_dir):
+    """The path as the CLI ships it: one untimed request over every target
+    (1 step, the same batches and L: cuBLAS set-up and allocator growth
+    fall outside the timed runs), then for each target its own counted and
+    timed request.  targets: {key: (directory, expected launches)}.
+    Checks each target's launches and PDB; returns {key: its numbers}."""
     from esmdiff_tpu_torch.cli import sample as cli
 
-    def run_cli(out, num_steps):
-        return cli.main(["--input", str(ROOT / TARGET), "--output", str(out),
+    def run_cli(dirs, out, num_steps):
+        return cli.main(["--input", *map(str, dirs), "--output", str(out),
                          "--mode", "ddpm", "--num_steps", str(num_steps),
                          "--num_samples", str(NUM_SAMPLES), "--seed", "0"],
-                        runtime=runtime)[0]
+                        runtime=runtime)
 
-    # one untimed request at the same batches and L (cuBLAS set-up and
-    # allocator growth fall outside the timed one), then the counted run
-    run_cli(out_dir.with_name(out_dir.name + "_warmup"), 1)
+    run_cli([d for d, _ in targets.values()],
+            out_dir.with_name(out_dir.name + "_warmup"), 1)
+    numbers = {}
+    for key, (directory, expected) in targets.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for op in ops.values():
+            op.launches = 0
+        report = run_cli([directory], out_dir / key, NUM_STEPS)[0]
+        launches = {k: op.launches for k, op in ops.items()}
+        if launches != expected:
+            raise AssertionError(f"{name}, {key}: kernel launches "
+                                 f"{launches}, expected {expected}")
+        pdb = out_dir / key / f"{report['target']}.pdb"
+        check_pdb(pdb.read_text(), NUM_SAMPLES,
+                  NUM_SAMPLES * (report["L"] * 4 - 1), str(pdb))
+        numbers[key] = {"report": report, "launches": launches,
+                        "peak_memory_gib":
+                            torch.cuda.max_memory_allocated() / 2**30}
+    return numbers
+
+
+def check_int8_dot(torch, quant, dense, w_bf16, T, gen):
+    """``int8_dot`` on the card against its plain version, bit for bit, on
+    one layer-0 projection of the int8 trunk (``dense``: a QuantDense) at T
+    tokens; device ms of the whole call (quantize, product, dequant), of
+    the card product alone, of the plain version and of the bf16
+    ``F.linear`` on the same layer's bf16 weight (``w_bf16``)."""
+    import torch.nn.functional as F
+
+    kq, scale = dense.kernel_q, dense.scale
+    F_out, D = kq.shape
+    x = torch.randn(T, D, device="cuda", generator=gen).to(torch.bfloat16)
+    before = quant.launches
+    out = quant.int8_dot(x, kq, scale)
+    xq, sa = quant.quantize_activations(x)
+    ref = (quant.int8_mm_reference(xq, kq).float() * sa * scale).to(
+        torch.bfloat16)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for op in ops.values():
-        op.launches = 0
-    report = run_cli(out_dir, NUM_STEPS)
-    launches = {k: op.launches for k, op in ops.items()}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if launches != expected:
-        raise AssertionError(f"{name}: kernel launches {launches}, expected "
-                             f"{expected}")
-    check_pdb(out_dir / "bpti.pdb", NUM_SAMPLES,
-              NUM_SAMPLES * (report["L"] * 4 - 1))
-    return report, launches, peak_gib
+    if quant.launches != before + 1 or not torch.equal(out, ref):
+        raise AssertionError(f"int8_dot at T {T}, ({F_out}, {D}): not bit "
+                             f"for bit its plain version")
+    # int8 operations at their peak against the bytes: x bf16 in, kq int8,
+    # the scale, y bf16 out
+    t_ops = 2.0 * T * D * F_out / H100_INT8_OPS
+    t_bytes = (2 * T * D + F_out * D + 4 * F_out + 2 * T * F_out) \
+        / H100_BYTES_PER_S
+    return {
+        "T": T, "D": D, "F": F_out, "bit_exact": True,
+        "ms": device_ms(lambda: quant.int8_dot(x, kq, scale)),
+        "int_mm_ms": device_ms(lambda: torch._int_mm(xq, kq.t())),
+        "plain_ms": device_ms(lambda: quant.int8_mm_reference(xq, kq)),
+        "bf16_linear_ms": device_ms(lambda: F.linear(x, w_bf16)),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+    }
+
+
+def int8_logits(torch, fa, trunk, toks, lengths, pack=1, flash=None,
+                leak=False):
+    """Structure logits (B, L, V) of one no-grad trunk forward: unpacked
+    with prefix ``lengths`` (``flash`` patched in for the kernel when
+    given), or ``pack`` rows to a device row under a segment mask
+    (``leak``: a planted fault, every valid token of a row in one
+    segment, so that segments attend each other)."""
+    from esmdiff_tpu_torch.ops.packing import (packed_positions,
+                                               packed_segment_ids)
+
+    B, L = toks.shape
+    saved = fa.flash_attention
+    if flash is not None:
+        fa.flash_attention = flash
+    try:
+        with torch.no_grad():
+            if pack == 1:
+                out = trunk(sequence_tokens=toks, lengths=lengths)
+            else:
+                sid = packed_segment_ids(lengths, L, pack)
+                out = trunk(sequence_tokens=toks.reshape(B // pack, pack * L),
+                            sequence_id=sid.clamp(max=0) if leak else sid,
+                            positions=packed_positions(L, pack,
+                                                       device="cuda"))
+    finally:
+        fa.flash_attention = saved
+    return out.structure_logits.reshape(B, L, -1)
+
+
+def post(url, payload):
+    """(status, JSON body) of a POST to the port's server."""
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def coalesced_posts(url, service, payloads):
+    """POST ``payloads`` at once while the server's sample lock is held,
+    so that they queue into one coalesced group; the replies, in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(payloads)) as ex:
+        with service._sample_lock:
+            futs = [ex.submit(post, url, p) for p in payloads]
+            deadline = time.time() + 120
+            while time.time() < deadline:
+                with service._pending_lock:
+                    queued = sum(len(v) for v in service._pending.values())
+                if queued == len(payloads):
+                    break
+                time.sleep(0.02)
+            else:
+                raise AssertionError(f"only {queued} requests queued")
+        return [f.result(timeout=900) for f in futs]
+
+
+def trunk_step_ms(torch, sampler, T, rows):
+    """Host-clock ms of one int8 trunk step (``forward_logits``: sigma
+    embedding, trunk, shields) on ``rows`` packed rows of width T, each
+    one segment under the segment mask (the plain path, as in every packed
+    row); mean of 5 after one untimed step."""
+    from esmdiff_tpu_torch.core import constants as C
+
+    toks = torch.full((rows, T), C.STRUCTURE_MASK_TOKEN, device="cuda")
+    seq = torch.randint(4, 24, (rows, T), device="cuda")
+    sid = torch.zeros(rows, T, dtype=torch.long, device="cuda")
+    pos = torch.arange(T, device="cuda").expand(rows, T)
+    sigma = torch.full((rows, 1), 0.5, device="cuda")
+
+    def step():
+        with torch.no_grad():
+            sampler.mdlm.forward_logits(toks, seq, sigma, shield_specials=True,
+                                        sequence_id=sid, positions=pos)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / 5
+
+
+def plan_ms_per_step(torch, sampler, sequence, plan, pack):
+    """Host-clock ms per trunk step of ``sequence``'s batches (``plan``)
+    through ``MDLM.ddpm_sample`` at pack factor ``pack(B, L)``, each batch
+    set up as the sampler's engine sets it up (request seed 0)."""
+    import numpy as np
+
+    from esmdiff_tpu_torch.api.generation import bucket_length
+    from esmdiff_tpu_torch.core import constants as C
+
+    dev = sampler.runtime.device
+    toks = sampler.runtime.seq_tokenizer.encode(sequence)
+    lw, Lb = len(toks), bucket_length(len(toks))
+    seq = torch.full((Lb,), C.SEQUENCE_PAD_TOKEN, dtype=torch.long,
+                     device=dev)
+    seq[:lw] = torch.as_tensor(toks, device=dev)
+    prior = torch.full((Lb,), C.STRUCTURE_PAD_TOKEN, dtype=torch.long,
+                       device=dev)
+    prior[:lw] = C.STRUCTURE_MASK_TOKEN
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for B in plan:
+        ids = np.stack([np.zeros(B, int), np.arange(B)], axis=1)
+        sampler.mdlm.ddpm_sample(
+            seq.expand(B, Lb),
+            sampler.noise_factory(ids, Lb, sampler.mdlm_cfg.vocab_size, dev),
+            num_steps=NUM_STEPS, input_prior=prior.expand(B, Lb),
+            lengths=torch.full((B,), lw, dtype=torch.int32, device=dev),
+            pack=pack(B, Lb))
+    torch.cuda.synchronize()
+    return 1e3 * (time.time() - t0) / (len(plan) * (NUM_STEPS + 1))
+
+
+def serve_path(torch, runtime, ops, card, gen):
+    """Phase 5 (module docstring).  Returns (numbers, launches)."""
+    import numpy as np
+
+    from esmdiff_tpu_torch.api.generation import (EnsembleSampler,
+                                                  bucket_length,
+                                                  plan_batches)
+    from esmdiff_tpu_torch.api.protein_api import ESMProtein
+    from esmdiff_tpu_torch.cli import sample as cli
+    from esmdiff_tpu_torch.cli import serve as server
+    from esmdiff_tpu_torch.nn.attention import plain_attention_with_lengths
+    from esmdiff_tpu_torch.ops import quant
+    from esmdiff_tpu_torch.ops.packing import pack_factor
+
+    fa = ops["flash_attention"]
+    t0 = time.time()
+    args = server.get_argparser().parse_args(["--quant", "int8", "--seed",
+                                              "0"])
+    rt = cli.build_runtime(args)       # as the server's main builds it
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    trunk, n_layers = rt.trunk, rt.trunk.cfg.n_layers
+    q0, b0 = rt.trunk.transformer.blocks[0], runtime.trunk.transformer.blocks[0]
+
+    # int8_dot bit for bit at the trunk's four products, T = 64 x 64
+    int8_rows = [check_int8_dot(torch, quant, dense, w.weight, 4096, gen)
+                 for dense, w in ((q0.attn.qkv, b0.attn.qkv),
+                                  (q0.attn.out, b0.attn.out),
+                                  (q0.ffn.up, b0.ffn.up),
+                                  (q0.ffn.down, b0.ffn.down))]
+    for r in int8_rows:
+        print("[int8] " + json.dumps(r), flush=True)
+
+    # packed against unpacked int8 logits, B 64, L 64: a random chain of
+    # the 20 amino acids a row (rows that differ, so that a segment that
+    # sees its neighbour reads different keys), lengths from 20 to 62
+    B, L = 64, 64
+    toks = torch.randint(4, 24, (B, L), device="cuda", generator=gen)
+    lengths = torch.randint(20, L - 1, (B,), device="cuda",
+                            dtype=torch.int32, generator=gen)
+    fa_before = fa.launches
+    packed = int8_logits(torch, fa, trunk, toks, lengths, pack=2)
+    if fa.launches != fa_before:
+        raise AssertionError("packed rows reached the flash kernel")
+    kernel = int8_logits(torch, fa, trunk, toks, lengths)
+    plain = int8_logits(torch, fa, trunk, toks, lengths,
+                        flash=fa.flash_attention_reference)
+    other = int8_logits(torch, fa, trunk, toks, lengths,
+                        flash=plain_attention_with_lengths)
+    bf16 = int8_logits(torch, fa, runtime.trunk, toks, lengths)
+    # two planted faults the packing gate must read above its limit: a
+    # segment mask that lets a row's segments see each other, and a packed
+    # trunk that runs bf16 in place of int8
+    leak = int8_logits(torch, fa, trunk, toks, lengths, pack=2, leak=True)
+    bf16_packed = int8_logits(torch, fa, runtime.trunk, toks, lengths, pack=2)
+    valid = torch.arange(L, device="cuda")[None, :] < lengths[:, None]
+
+    def rel(a, b):
+        a, b = a[valid].float(), b[valid].float()
+        return ((a - b).norm() / b.norm()).item()
+
+    # packed rows take the plain masked attention, so packing only changes
+    # the rounding of one plain attention: packed against the unpacked
+    # plain path is held to the spread of two plain roundings (once, not
+    # twice), and against the kernel path to twice it
+    gate = {"packed_vs_unpacked": rel(packed, kernel),
+            "plain_roundings": rel(other, plain),
+            "packed_vs_unpacked_same_rounding": rel(packed, other),
+            "int8_vs_bf16": rel(kernel, bf16),
+            "planted_segment_leak": rel(leak, other),
+            "planted_bf16_packed": rel(bf16_packed, other)}
+    limit = gate["plain_roundings"]
+    if not (torch.isfinite(packed[valid]).all()
+            and gate["packed_vs_unpacked_same_rounding"] <= limit
+            and gate["packed_vs_unpacked"] <= 2 * limit):
+        raise AssertionError(f"int8 trunk logits, packed vs unpacked: {gate}")
+    if not min(gate["planted_segment_leak"],
+               gate["planted_bf16_packed"]) > limit:
+        raise AssertionError(f"the packing gate passes a planted fault: "
+                             f"{gate}")
+
+    # the server, over HTTP on 127.0.0.1
+    sampler = EnsembleSampler(rt)
+    service = server.SamplerService(sampler, max_samples=args.max_samples,
+                                    max_batch=args.max_batch)
+    httpd = server.serve(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_port}"
+    try:
+        t0 = time.time()
+        status, warm = post(url + "/warmup", {
+            "lengths": [58], "num_samples": NUM_SAMPLES, "mode": "ddpm",
+            "packed_lengths": [58, 120, 250]})
+        if status != 200:
+            raise AssertionError(f"/warmup: {status} {warm}")
+        warmup_s = time.time() - t0
+
+        # BPTI x 100, the ladder plan with max_batch 64: [64, 32, 8], pack 2
+        bpti = ESMProtein.from_pdb(ROOT / TARGET / "bpti.pdb").sequence
+        lw = len(bpti) + 2
+        plan = plan_batches(lw, NUM_SAMPLES, max_batch=args.max_batch,
+                            policy="ladder")
+        packs = [pack_factor(b, bucket_length(lw)) for b in plan]
+        decode_chunks = -(-NUM_SAMPLES // DECODE_BATCH)
+        want_bpti = {
+            "flash_attention": (n_layers * (NUM_STEPS + 1)
+                                * sum(p == 1 for p in packs)
+                                + rt.decoder.cfg.n_layers * decode_chunks),
+            "int8_products": 4 * n_layers * (NUM_STEPS + 1) * len(plan)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for op in (*ops.values(), quant):
+            op.launches = 0
+        status, reply = post(url + "/sample", {
+            "sequence": bpti, "num_samples": NUM_SAMPLES, "mode": "ddpm",
+            "num_steps": NUM_STEPS, "seed": 0, "format": "pdb"})
+        launches = {k: op.launches for k, op in ops.items()}
+        bpti_launches = {**launches, "int8_products": quant.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if status != 200:
+            raise AssertionError(f"/sample BPTI: {status} {reply}")
+        check_pdb(reply["pdb"], NUM_SAMPLES, NUM_SAMPLES * (len(bpti) * 4 - 1),
+                  "/sample BPTI")
+        if (bpti_launches["flash_attention"] != want_bpti["flash_attention"]
+                or bpti_launches["int8_products"]
+                != want_bpti["int8_products"]
+                or any(launches[k] for k in ("small_attention", "fused_qkv",
+                                              "fused_ffn"))):
+            raise AssertionError(f"serve path, BPTI: launches "
+                                 f"{bpti_launches}, expected {want_bpti}")
+
+        # three concurrent requests, three length buckets, one group
+        def residues(n):
+            return ("ACDEFGHIKLMNPQRSTVWY" * (n // 20 + 1))[:n]
+
+        lens, n_each = [58, 120, 250], 8
+        lws = [n + 2 for n in lens]
+        route = sampler._mixed_route(
+            lws, [n_each] * 3, max(128, bucket_length(max(lws), 64)))
+        want_group = 0
+        if route[0] == "split":       # per-bucket batches; pack 1 -> flash
+            for n in lws:
+                want_group += n_layers * (NUM_STEPS + 1) * sum(
+                    pack_factor(b, bucket_length(n)) == 1
+                    for b in plan_batches(n, n_each,
+                                          max_batch=args.max_batch))
+        fa_before = fa.launches
+        t0 = time.time()
+        replies = coalesced_posts(url + "/sample", service, [
+            {"sequence": residues(n), "num_samples": n_each, "mode": "ddpm",
+             "num_steps": NUM_STEPS, "seed": i, "format": "tokens"}
+            for i, n in enumerate(lens)])
+        group_s = time.time() - t0
+        group_launches = fa.launches - fa_before
+        for n, (status, body) in zip(lens, replies):
+            shape = np.asarray(body.get("tokens", [])).shape
+            if (status != 200 or body.get("coalesced") != 3
+                    or shape != (n_each, n)):
+                raise AssertionError(f"coalesced request of {n}: {status}, "
+                                     f"coalesced {body.get('coalesced')}, "
+                                     f"tokens {shape}")
+        if group_launches != want_group:
+            raise AssertionError(f"coalesced group: {group_launches} flash "
+                                 f"launches, expected {want_group}")
+
+        status, bad = post(url + "/sample", {"sequence": "X1",
+                                             "mode": "ddpm"})
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if status != 400 or health.get("card") != torch.cuda.get_device_name(
+                0):
+            raise AssertionError(f"bad request {status} {bad}; /healthz "
+                                 f"{health}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+
+    # BPTI's plan at pack 1 against JAX's pack, through ddpm_sample
+    steps = len(plan) * (NUM_STEPS + 1)
+    by_pack = {name: plan_ms_per_step(torch, sampler, bpti, plan, pack)
+               for name, pack in (("pack_1", lambda B, L: 1),
+                                  ("jax_pack", pack_factor))}
+
+    # host time of a step's draws for BPTI's B-64 batch: one generator a
+    # row (the multi engine), and the same 64 samples as segments placed
+    # two to a 128-wide row (the packed engine's SegmentNoise)
+    from esmdiff_tpu_torch.api.generation import SegmentNoise
+
+    V = sampler.mdlm_cfg.vocab_size
+    ids = np.stack([np.zeros(64, int), np.arange(64)], axis=1)
+    row_noise = sampler.noise_factory(ids, bucket_length(lw), V, rt.device)
+    seg_noise = SegmentNoise(
+        sampler.noise_factory,
+        [(0, j, lw, j // 2, (j % 2) * 64) for j in range(64)], 32, 128, V,
+        rt.device)
+    noise_ms = {name: {"host_ms": host_ms(lambda: src(0), calls=20),
+                       "device_ms": device_ms(lambda: src(0), iters=5)}
+                for name, src in (("row_generators", row_noise),
+                                  ("segment_noise", seg_noise))}
+
+    rows = {T: trunk_step_ms(torch, sampler, T, 8192 // T)
+            for T in (64, 128, 256)}
+    numbers = {
+        "card": card, "init_s": init_s, "warmup_s": warmup_s,
+        "warmed": warm["warmed"], "plan": plan, "packs": packs,
+        "decode_chunks": decode_chunks,
+        "sampling_s": reply["sampling_sec"], "total_s": reply["total_sec"],
+        "conformations_per_s": NUM_SAMPLES / reply["total_sec"],
+        "ms_per_step": 1e3 * reply["sampling_sec"] / steps,
+        "peak_memory_gib": peak_gib, "launches": bpti_launches,
+        "coalesced_group": {"lengths": lens, "samples_each": n_each,
+                            "route": route[0], "route_costs": route[1:],
+                            "s": group_s,
+                            "flash_attention_launches": group_launches},
+        "bpti_ms_per_step": by_pack, "draws_per_step_b64": noise_ms,
+        "int8_trunk_ms_per_step_8192_tokens": {
+            T: {"rows": 8192 // T, "ms_per_step": ms,
+                "ms_per_step_per_row": ms / (8192 // T)}
+            for T, ms in rows.items()},
+        "trunk_logits_rel_l2": gate, "healthz_card": health["card"]}
+    return numbers, bpti_launches
 
 
 def main() -> int:
@@ -370,7 +809,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from esmdiff_tpu_torch.api.generation import plan_batches
+    from esmdiff_tpu_torch.api.generation import bucket_length, plan_batches
     from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
     from esmdiff_tpu_torch.models.esm3 import ESM3, ESM3Config, esm3_open_small
     from esmdiff_tpu_torch.nn.attention import plain_attention_with_lengths
@@ -381,6 +820,7 @@ def main() -> int:
     from esmdiff_tpu_torch.ops import fused_ffn as ff
     from esmdiff_tpu_torch.ops import fused_qkv as fq
     from esmdiff_tpu_torch.ops import small_attention as sa
+    from esmdiff_tpu_torch.ops.packing import pack_factor
 
     ops = {"flash_attention": fa, "small_attention": sa, "fused_qkv": fq,
            "fused_ffn": ff}
@@ -446,19 +886,46 @@ def main() -> int:
         for s in rows:
             print(f"[kernel] {name} " + json.dumps(s), flush=True)
 
-    # 3. the default path (flash attention in every trunk and decoder layer)
-    L_w = len(ESMProtein.from_pdb(ROOT / TARGET / "bpti.pdb").sequence) + 2
-    batches = plan_batches(L_w, NUM_SAMPLES, policy="single")
-    chunks = -(-NUM_SAMPLES // DECODE_BATCH)
-    trunk_launches = trunk_cfg.n_layers * (NUM_STEPS + 1) * len(batches)
-    dec_launches = runtime.decoder.cfg.n_layers * chunks
-    steps = len(batches) * (NUM_STEPS + 1)
+    # 3. the default path, as the CLI ships it, on two targets: BPTI (L 60,
+    # bucket 64: two rows share a device row, and packed rows take the
+    # plain masked attention, so only the decoder runs the kernel) and a
+    # 118-residue chain (bucket 128, pack 1: every trunk layer runs it)
+    short = ROOT / "output" / "chip_smoke_targets" / L128_TARGET.stem
+    short.mkdir(parents=True, exist_ok=True)
+    shutil.copy(ROOT / L128_TARGET, short / L128_TARGET.name)
+    target_dirs = {"bpti": ROOT / TARGET, L128_TARGET.stem: short}
+    lws = {key: len(ESMProtein.from_pdb(next(d.glob("*.pdb"))).sequence) + 2
+           for key, d in target_dirs.items()}
+    dec_layers = runtime.decoder.cfg.n_layers
     n_params = sum(p.numel() for p in runtime.trunk.parameters())
-    report, launches, peak_gib = drive(
+
+    def path_numbers(driven):
+        out = {}
+        for key, n in driven.items():
+            plan = plan_batches(lws[key], NUM_SAMPLES, policy="single")
+            r = n["report"]
+            out[key] = {
+                "L": r["L"], "batches": plan,
+                "packs": [pack_factor(b, bucket_length(lws[key]))
+                          for b in plan],
+                "sampling_s": r["sampling_sec"], "total_s": r["total_sec"],
+                "conformations_per_s": NUM_SAMPLES / r["total_sec"],
+                "ms_per_step": 1e3 * r["sampling_sec"]
+                / (len(plan) * (NUM_STEPS + 1)),
+                "peak_memory_gib": n["peak_memory_gib"],
+                "launches": n["launches"]}
+        return out
+
+    def summed(driven):
+        return {k: sum(n["launches"][k] for n in driven.values())
+                for k in KERNELS}
+
+    driven = drive(
         torch, runtime, ops, "default path",
-        {"flash_attention": trunk_launches + dec_launches,
-         "small_attention": 0, "fused_qkv": 0, "fused_ffn": 0},
+        {key: (d, path_launches(trunk_cfg, dec_layers, lws[key], False))
+         for key, d in target_dirs.items()},
         ROOT / "output" / "chip_smoke")
+    launches = summed(driven)
     rel, floor = kernel_vs_plain(
         torch, runtime,
         {}, {(fa, "flash_attention"): fa.flash_attention_reference},
@@ -468,13 +935,8 @@ def main() -> int:
                              f"version: relative L2 {rel}, more than twice "
                              f"the two plain roundings' {floor}")
     print("[main path] " + json.dumps({
-        "card": card, "trunk_params": n_params, "batches": batches,
-        "decode_chunks": chunks, "init_s": init_s,
-        "sampling_s": report["sampling_sec"], "total_s": report["total_sec"],
-        "conformations_per_s": NUM_SAMPLES / report["total_sec"],
-        "ms_per_step": 1e3 * report["sampling_sec"] / steps,
-        "peak_memory_gib": peak_gib,
-        "flash_attention_launches": launches["flash_attention"],
+        "card": card, "trunk_params": n_params, "init_s": init_s,
+        "targets": path_numbers(driven), "launches": launches,
         "trunk_logits_rel_l2_kernel_vs_plain": rel,
         "trunk_logits_rel_l2_plain_roundings": floor}), flush=True)
 
@@ -487,11 +949,12 @@ def main() -> int:
     fused_trunk.load_state_dict(runtime.trunk.state_dict(), strict=True)
     fused_rt = ESM3Runtime(fused_trunk, runtime.decoder,
                            runtime.sigma_embedder, device="cuda")
-    f_report, f_launches, f_peak = drive(
+    f_driven = drive(
         torch, fused_rt, ops, "fused path",
-        {"flash_attention": dec_launches, "small_attention": trunk_launches,
-         "fused_qkv": trunk_launches, "fused_ffn": 0},
+        {key: (d, path_launches(trunk_cfg, dec_layers, lws[key], True))
+         for key, d in target_dirs.items()},
         ROOT / "output" / "chip_smoke_fused")
+    f_launches = summed(f_driven)
 
     def small_normalised_first(q, k, v, cos, sin, lens):
         # the JAX _xla_reference: p normalised before its bf16 cast
@@ -511,19 +974,19 @@ def main() -> int:
     print("[fused path] " + json.dumps({
         "card": card, "config": {"qkv_backend": "fused",
                                  "attn_backend": "small"},
-        "batches": batches, "decode_chunks": chunks,
-        "sampling_s": f_report["sampling_sec"],
-        "total_s": f_report["total_sec"],
-        "conformations_per_s": NUM_SAMPLES / f_report["total_sec"],
-        "ms_per_step": 1e3 * f_report["sampling_sec"] / steps,
-        "peak_memory_gib": f_peak, "launches": f_launches,
+        "targets": path_numbers(f_driven), "launches": f_launches,
         "trunk_logits_rel_l2_kernel_vs_plain": f_rel,
         "trunk_logits_rel_l2_plain_roundings": f_floor}), flush=True)
 
-    # 5. the kernels line (headline shape: the trunk's), the device line;
+    # 5. the serve path: the int8 runtime behind the port's HTTP server
+    s_numbers, s_launches = serve_path(torch, runtime, ops, card, gen)
+    print("[serve path] " + json.dumps(s_numbers), flush=True)
+
+    # 6. the kernels line (headline shape: the trunk's), the device line;
     # launches from the path that runs the kernel, fused_ffn's from its
     # phase (no model path runs it)
-    by_path = {"default path": launches, "fused path": f_launches}
+    by_path = {"default path": launches, "fused path": f_launches,
+               "serve path": s_launches}
     launches_from = {"flash_attention": "default path",
                      "small_attention": "fused path",
                      "fused_qkv": "fused path"}

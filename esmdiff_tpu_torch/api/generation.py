@@ -1,10 +1,15 @@
 """Ensemble generation engine, ddpm subset (port of
 ``esmdiff_tpu/api/generation.py``): the memory-aware batch planner, length
-buckets, per-row seeding, the ddpm ensemble and the batched VQ decode.
+buckets, per-row seeding, sequence packing of short buckets, the ddpm
+engines (solo, same-bucket coalesced, cross-length packed, and the
+cost-routed mixed one that picks between the last two) and the batched VQ
+decode, also coalesced across requests.
 
-Sequence packing (``EnsembleSampler._pack`` in JAX) is a TPU MXU schedule
-and is not ported yet: the trunk runs unpacked (pack=1) with prefix-length
-masking, which computes the same function.
+A sample's draws depend only on (its request's seed, its index in the
+request): a noise factory builds them for a row of the sample's own length
+bucket, and the packed engine places each sample's draws where its segment
+lies (``SegmentNoise``), so a sample draws the same solo, coalesced or
+packed.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from esmdiff_tpu_torch.core.tokenizer import StructureTokenizer
 from esmdiff_tpu_torch.diffusion.mdlm import (MDLM, MDLMConfig, NoiseSource,
                                               RowGeneratorNoise)
 from esmdiff_tpu_torch.diffusion.noise import LogLinearNoise, Noise
+from esmdiff_tpu_torch.ops.packing import (PACK_TARGET_LEN, pack_factor,
+                                           plan_segment_rows)
 from .protein_api import ESM3Runtime, ESMProtein
 
 # Reference inference memory budget (sample_esmdiff.py:75).
@@ -97,6 +104,47 @@ def generator_noise(rows: np.ndarray, length: int, vocab: int,
                     device) -> NoiseSource:
     """The default noise factory: ``RowGeneratorNoise`` seeded per row."""
     return RowGeneratorNoise(request_row_seeds(rows), length, vocab, device)
+
+
+class SegmentNoise:
+    """The draws of a packed (R, T) layout: each segment (one sample)
+    gets exactly the draws of its solo run.  Segments are grouped by their
+    length bucket; one source per group, from ``factory`` at the bucket's
+    length (the solo run's row length), and each segment's positions
+    0..lw-1 are copied into its span.  Positions outside every segment
+    draw nothing (they are padding, which the sampler copies through).
+
+    placed: (request seed, sample index, lw, row, offset) per segment."""
+
+    def __init__(self, factory: NoiseFactory, placed, R: int, T: int,
+                 vocab: int, device):
+        self.R, self.T, self.vocab = R, T, vocab
+        self.device = torch.device(device)
+        by_bucket: dict[int, list] = {}
+        for seg in placed:
+            by_bucket.setdefault(bucket_length(seg[2]), []).append(seg)
+        self.groups = []
+        for Lb, segs in sorted(by_bucket.items()):
+            rows = np.array([[s, j] for s, j, _, _, _ in segs])
+            src = np.concatenate([i * Lb + np.arange(lw)
+                                  for i, (_, _, lw, _, _) in enumerate(segs)])
+            dst = np.concatenate([r * T + off + np.arange(lw)
+                                  for _, _, lw, r, off in segs])
+            self.groups.append((
+                factory(rows, Lb, vocab, self.device),
+                torch.as_tensor(src, device=self.device),
+                torch.as_tensor(dst, device=self.device)))
+
+    def __call__(self, step: int):
+        kw = dict(device=self.device, dtype=torch.float32)
+        gumbel = torch.zeros((self.R * self.T, self.vocab), **kw)
+        stay_u = torch.ones((self.R * self.T,), **kw)
+        for source, src, dst in self.groups:
+            g, u = source(step)
+            gumbel[dst] = g.to(self.device).reshape(-1, self.vocab)[src]
+            stay_u[dst] = u.to(self.device).reshape(-1)[src]
+        return (gumbel.view(self.R, self.T, self.vocab),
+                stay_u.view(self.R, self.T))
 
 
 class EnsembleSampler:
@@ -221,16 +269,198 @@ class EnsembleSampler:
                                           self.mdlm_cfg.vocab_size, dev),
                 num_steps=num_steps, eps=eps,
                 input_prior=torch.as_tensor(prior_rows[idx], device=dev),
-                sample_max_t=sample_max_t, lengths=lengths)
+                sample_max_t=sample_max_t, lengths=lengths,
+                pack=self._pack(B, Lpad))
             outs.append(toks.cpu().numpy().astype(np.int32))
             start += B
         return self._split_rows(np.concatenate(outs, axis=0), lws, counts)
+
+    @staticmethod
+    def _pack(B: int, L: int) -> int:
+        """Sequence-packing factor of a (B, L) batch (ops/packing.py): k
+        same-length rows share one device row under a block-diagonal
+        segment mask.  The sampler's state and draws stay at (B, L)."""
+        return pack_factor(B, L)
+
+    # -- cross-length packed ddpm ---------------------------------------------
+    # The JAX package's routing curve: per-row step cost of the int8 trunk
+    # at row width T (relative costs; measured on a TPU v5e by the JAX
+    # package, not on this card).  Kept so that routes match JAX's; only
+    # its shape matters to the router.
+    _ROW_COST_POINTS = ((64, 1.12), (128, 2.02), (256, 4.99),
+                        (512, 10.8), (1024, 21.5))
+
+    @classmethod
+    def _row_step_cost(cls, T: int) -> float:
+        pts = cls._ROW_COST_POINTS
+        if T <= pts[0][0]:
+            return pts[0][1] * T / pts[0][0]
+        for (t0, c0), (t1, c1) in zip(pts, pts[1:]):
+            if T <= t1:
+                return c0 + (c1 - c0) * (T - t0) / (t1 - t0)
+        t1, c1 = pts[-1]
+        return c1 * T / t1
+
+    def _mixed_route(self, lws: Sequence[int], counts: Sequence[int],
+                     T: int) -> tuple[str, float, float]:
+        """('packed'|'split', packed_cost, split_cost) for a mixed group.
+
+        split: each bucket runs its own batches; same-bucket packing to
+        PACK_TARGET_LEN means a segment of bucket Lb shares a
+        W=max(Lb, 128)-wide row with W//Lb peers.  packed: first-fit-
+        decreasing layout into T-wide rows."""
+        split = 0.0
+        for lw, c in zip(lws, counts):
+            Lb = bucket_length(lw)
+            W = max(Lb, PACK_TARGET_LEN)
+            split += c * self._row_step_cost(W) / max(1, W // Lb)
+        seg_lens = [lw for lw, c in zip(lws, counts) for _ in range(c)]
+        packed = len(plan_segment_rows(seg_lens, T)) * self._row_step_cost(T)
+        return ("packed" if packed < split * 0.98 else "split",
+                packed, split)
+
+    def ddpm_ensemble_mixed(self, sequences: Sequence[str],
+                            counts: Sequence[int], num_steps: int = 25,
+                            eps: float = 1e-5,
+                            seeds: Optional[Sequence[int]] = None,
+                            max_batch: Optional[int] = None,
+                            budget: int = N_MAX_RESIDUE_SQUARE,
+                            ) -> list[np.ndarray]:
+        """Cost-routed coalescing of a group spanning length buckets: one
+        cross-length packed program (:meth:`ddpm_ensemble_packed`) when the
+        routing curve says it is cheaper, else each bucket's sub-group
+        through :meth:`ddpm_ensemble_multi`.  Per-request seeds keep the
+        draws independent of co-batched traffic on both routes."""
+        if seeds is None:
+            seeds = list(range(len(sequences)))
+        lws = [len(self.runtime.seq_tokenizer.encode(s)) for s in sequences]
+        T = max(128, bucket_length(max(lws), 64))
+        route, _, _ = self._mixed_route(lws, counts, T)
+        if route == "packed":
+            return self.ddpm_ensemble_packed(
+                sequences, counts, num_steps=num_steps, eps=eps,
+                seeds=seeds, budget=budget)
+        results: list = [None] * len(sequences)
+        by_bucket: dict[int, list[int]] = {}
+        for i, lw in enumerate(lws):
+            by_bucket.setdefault(bucket_length(lw), []).append(i)
+        for _, idxs in sorted(by_bucket.items()):
+            outs = self.ddpm_ensemble_multi(
+                [sequences[i] for i in idxs], [counts[i] for i in idxs],
+                num_steps=num_steps, eps=eps,
+                seeds=[seeds[i] for i in idxs], max_batch=max_batch,
+                budget=budget)
+            for i, o in zip(idxs, outs):
+                results[i] = o
+        return results
+
+    def ddpm_ensemble_packed(self, sequences: Sequence[str],
+                             counts: Sequence[int], num_steps: int = 25,
+                             eps: float = 1e-5, sample_max_t: float = 1.0,
+                             budget: int = N_MAX_RESIDUE_SQUARE,
+                             seeds: Optional[Sequence[int]] = None,
+                             ) -> list[np.ndarray]:
+        """Cross-length coalesced ddpm: requests from different length
+        buckets share device rows.  Each sample is a segment; segments pack
+        first-fit-decreasing into rows of width T (>= the largest bucket)
+        under a block-diagonal segment mask, positions restarting per
+        segment, in chunks of Rb rows (the L^2 * B memory budget on T,
+        on the power-of-two ladder from 8).
+
+        Each segment draws exactly its solo run's draws (``SegmentNoise``),
+        so a request's tokens match its solo run up to the trunk's
+        floating-point reduction order across layouts.
+        Returns one (counts[i], L_i) interior-token array per request."""
+        if seeds is None:
+            seeds = list(range(len(sequences)))
+        seq_toks = [np.asarray(self.runtime.seq_tokenizer.encode(s))
+                    for s in sequences]
+        lws = [len(t) for t in seq_toks]
+        # (request, sample) -> one segment each, request-major
+        segs = [(i, j) for i, c in enumerate(counts) for j in range(c)]
+        T = max(128, bucket_length(max(lws), 64))
+        rows = plan_segment_rows([lws[i] for i, _ in segs], T)
+        R = len(rows)
+        max_rows = max(1, budget // (T * T))
+        Rb = min(1 << (max_rows.bit_length() - 1),
+                 max(8, _pow2_at_least(R)))
+
+        dev = self.runtime.device
+        out_per_seg: list = [None] * len(segs)
+        for start in range(0, R, Rb):
+            seq_a = np.full((Rb, T), C.SEQUENCE_PAD_TOKEN, np.int64)
+            prior = np.full((Rb, T), C.STRUCTURE_PAD_TOKEN, np.int64)
+            segid = np.full((Rb, T), -1, np.int64)
+            posit = np.zeros((Rb, T), np.int64)
+            placed = []                      # (global seg, row, offset, lw)
+            for r, row in enumerate(rows[start:start + Rb]):
+                off = 0
+                for s_local, gseg in enumerate(row):
+                    i, _ = segs[gseg]
+                    lw = lws[i]
+                    seq_a[r, off:off + lw] = seq_toks[i]
+                    prior[r, off:off + lw] = C.STRUCTURE_MASK_TOKEN
+                    segid[r, off:off + lw] = s_local
+                    posit[r, off:off + lw] = np.arange(lw)
+                    placed.append((gseg, r, off, lw))
+                    off += lw
+            noise = SegmentNoise(
+                self.noise_factory,
+                [(seeds[segs[g][0]], segs[g][1], lw, r, off)
+                 for g, r, off, lw in placed],
+                Rb, T, self.mdlm_cfg.vocab_size, dev)
+            toks = self.mdlm.ddpm_sample(
+                torch.as_tensor(seq_a, device=dev), noise,
+                num_steps=num_steps, eps=eps,
+                input_prior=torch.as_tensor(prior, device=dev),
+                sample_max_t=sample_max_t,
+                sequence_id=torch.as_tensor(segid, device=dev),
+                positions=torch.as_tensor(posit, device=dev))
+            toks = toks.cpu().numpy().astype(np.int32)
+            for gseg, r, off, lw in placed:
+                out_per_seg[gseg] = toks[r, off + 1:off + lw - 1]
+        res, k = [], 0
+        for c in counts:
+            res.append(np.stack(out_per_seg[k:k + c]))
+            k += c
+        return res
 
     # -- decode to proteins ---------------------------------------------------
     def decode_ensemble(self, sequence: str, tokens: np.ndarray,
                         decode_batch: int = 32) -> list[ESMProtein]:
         return decode_tokens_to_proteins(self.runtime, sequence, tokens,
                                          decode_batch)
+
+    def decode_ensemble_multi(self, sequences: Sequence[str],
+                              tokens_list: Sequence[np.ndarray],
+                              decode_batch: int = 32,
+                              ) -> list[list[ESMProtein]]:
+        """Coalesced VQ decode: rows of several requests share decoder
+        batches, grouped by length bucket (rows padded to the bucket, pad
+        masked out through ``lengths``); a chunk of n rows decodes at
+        min(decode_batch, the power of two >= n) rows."""
+        results: list[list] = [[None] * t.shape[0] for t in tokens_list]
+        by_bucket: dict[int, list] = {}
+        for i, (seq, toks) in enumerate(zip(sequences, tokens_list)):
+            for j in range(toks.shape[0]):
+                row = StructureTokenizer.add_bos_eos(toks[j].astype(np.int32))
+                by_bucket.setdefault(bucket_length(len(row)), []).append(
+                    (i, j, row, seq))
+        for Lpad, rows in by_bucket.items():
+            for s in range(0, len(rows), decode_batch):
+                chunk = rows[s:s + decode_batch]
+                B = min(decode_batch, _pow2_at_least(len(chunk)))
+                prots = _decode_padded_chunk(
+                    self.runtime, [r[2] for r in chunk],
+                    [r[3] for r in chunk], Lpad, B)
+                for (i, j, _, _), p in zip(chunk, prots):
+                    results[i][j] = p
+        return results
+
+
+def _pow2_at_least(n: int) -> int:
+    """Smallest power of two >= n (batch-dimension bucketing)."""
+    return 1 << max(0, n - 1).bit_length()
 
 
 def _decode_padded_chunk(runtime: ESM3Runtime, rows: list, seqs: list,

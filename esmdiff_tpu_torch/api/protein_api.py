@@ -16,8 +16,9 @@ from esmdiff_tpu_torch.core.tokenizer import SequenceTokenizer
 from esmdiff_tpu_torch.device import resolve_device
 from esmdiff_tpu_torch.models.esm3 import ESM3, ESM3Config
 from esmdiff_tpu_torch.models.vqvae import DecoderConfig, StructureTokenDecoder
-from esmdiff_tpu_torch.nn.layers import (TimestepEmbedder, cast_matmul_weights,
-                                         init_params)
+from esmdiff_tpu_torch.nn.layers import (Dense, TimestepEmbedder,
+                                         cast_matmul_weights, init_params)
+from esmdiff_tpu_torch.ops.quant import quantize_trunk_params
 
 
 @dataclasses.dataclass
@@ -29,7 +30,16 @@ class ESMProtein:
 
     @classmethod
     def from_pdb(cls, path: str | Path, chain_id: str | None = None):
-        prot = protein_io.from_pdb_file(path, chain_id=chain_id)
+        return cls._from_parsed(
+            protein_io.from_pdb_file(path, chain_id=chain_id))
+
+    @classmethod
+    def from_pdb_string(cls, pdb_str: str, chain_id: str | None = None):
+        return cls._from_parsed(
+            protein_io.from_pdb_string(pdb_str, chain_id=chain_id))
+
+    @classmethod
+    def _from_parsed(cls, prot):
         if isinstance(prot, list):
             prot = prot[0]
         coords = prot.atom_positions.copy()
@@ -74,12 +84,15 @@ class ESM3Runtime:
     def random_init(cls, seed: int = 0,
                     trunk_cfg: Optional[ESM3Config] = None,
                     decoder_cfg: Optional[DecoderConfig] = None,
-                    device=None) -> "ESM3Runtime":
+                    device=None, quant: str = "none") -> "ESM3Runtime":
         """Random weights from ``seed`` — for tests, benchmarks and dev.
 
         The modules are built and initialised on ``device``, so the 1.4B
         trunk never initialises on the host; matmul weights are then stored
-        in each module's compute dtype (see ``cast_matmul_weights``)."""
+        in each module's compute dtype (see ``cast_matmul_weights``).
+        quant: "int8" quantizes the trunk (``quantize``) from its float32
+        weights, before that cast, as the JAX package quantizes its float32
+        params; the other weights are those of ``quant="none"``."""
         dev = resolve_device(device)
         trunk_cfg = trunk_cfg or ESM3Config()
         decoder_cfg = decoder_cfg or DecoderConfig()
@@ -92,8 +105,36 @@ class ESM3Runtime:
                                    dtype=trunk_cfg.torch_dtype)
         for m in (trunk, decoder, sig):
             init_params(m, gen)
+        if quant != "none":
+            trunk = _quantized(trunk, quant)
+        for m in (trunk, decoder, sig):
             cast_matmul_weights(m)
         return cls(trunk, decoder, sig, device=dev)
+
+    def quantize(self, mode: str = "int8",
+                 include_decoder: bool = False) -> "ESM3Runtime":
+        """A runtime whose trunk runs W8A8 int8 projections (ops/quant.py);
+        attention cores, LayerNorms, embeddings and heads keep their dtype.
+        The sigma embedder is shared, and the decoder too unless
+        ``include_decoder`` quantizes its stack (off by default, as in JAX:
+        trunk-only quantization leaves decoded coordinates unchanged for the
+        same tokens).
+
+        It quantizes the weights the modules hold.  The JAX package
+        quantizes float32 params, so a module whose matmul weights are
+        held in a narrower dtype (``random_init`` of a bf16 config stores
+        them so) raises: its int8 weights would differ from JAX's.  Build
+        such a runtime with ``random_init(quant="int8")``, which quantizes
+        before the cast."""
+        for module in ((self.trunk, self.decoder) if include_decoder
+                       else (self.trunk,)):
+            _require_float32_matmuls(module)
+        trunk = cast_matmul_weights(_quantized(self.trunk, mode))
+        decoder = self.decoder
+        if include_decoder:
+            decoder = cast_matmul_weights(_quantized(self.decoder, mode))
+        return ESM3Runtime(trunk, decoder, self.sigma_embedder,
+                           device=self.device)
 
     @torch.no_grad()
     def decode_batch(self, structure_tokens, sequences,
@@ -127,3 +168,32 @@ class ESM3Runtime:
             coords[p.atom_mask < 0.5] = np.nan
             prots.append(ESMProtein(sequence=seq, coordinates=coords))
         return prots
+
+
+def _require_float32_matmuls(module):
+    """Raise if a Dense weight of ``module`` is held in a narrower dtype
+    than float32 (see ``ESM3Runtime.quantize``)."""
+    narrow = {m.weight.dtype for m in module.modules()
+              if isinstance(m, Dense)} - {torch.float32}
+    if narrow:
+        raise ValueError(
+            f"{type(module).__name__} holds its matmul weights in "
+            f"{sorted(map(str, narrow))}: quantizing them would give int8 "
+            "weights that differ from those the JAX package quantizes from "
+            "float32; build the runtime with random_init(quant='int8')")
+
+
+@torch.no_grad()
+def _quantized(module, mode: str):
+    """The ``quant=mode`` twin of a trunk or VQ decoder, on the module's
+    device, holding ``quantize_trunk_params`` of its state dict."""
+    if mode != "int8":
+        raise ValueError(f"unknown quantization mode: {mode}")
+    cfg = dataclasses.replace(module.cfg, quant="int8")
+    if isinstance(cfg, ESM3Config):
+        cfg = dataclasses.replace(cfg, qkv_backend="xla")
+    with torch.device(next(module.parameters()).device):
+        twin = type(module)(cfg)
+    twin.load_state_dict(quantize_trunk_params(module.state_dict()),
+                         strict=True)
+    return twin.eval()

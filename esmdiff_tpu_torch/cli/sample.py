@@ -2,9 +2,10 @@
 
 Port of ``esmdiff_tpu/cli/sample.py``: per-target PDB in a directory -> N
 sampled conformations -> one multi-MODEL PDB per target, plus
-``timings.json``.  Same flags, plus ``--device`` (default ``cuda``); the
-gibbs and eb modes, checkpoints, int8, inpainting, refinement, profiling
-and data parallelism are not ported yet and raise.
+``timings.json``.  Same flags, plus ``--device`` (default ``cuda``);
+``--quant int8`` runs the trunk's projections in W8A8 int8.  The gibbs and
+eb modes, checkpoints, inpainting, refinement, profiling and data
+parallelism are not ported yet and raise.
 
     python -m esmdiff_tpu_torch.cli.sample --input data/targets/bpti \\
         --output output/torch --mode ddpm --num_steps 25 --num_samples 100
@@ -31,6 +32,8 @@ def _not_ported(what: str):
 
 
 def build_runtime(args) -> ESM3Runtime:
+    """Random weights at ``--model_scale``, the trunk quantized from its
+    float32 weights with ``--quant int8``."""
     if args.ckpt or args.vqvae_ckpt:
         _not_ported("checkpoint loading (--ckpt/--vqvae_ckpt)")
     print("[warning] no --ckpt given: sampling with RANDOM weights "
@@ -38,13 +41,13 @@ def build_runtime(args) -> ESM3Runtime:
     if args.model_scale == "full":
         return ESM3Runtime.random_init(
             seed=args.seed, trunk_cfg=ESM3Config(head_type="structure"),
-            device=args.device)
+            device=args.device, quant=args.quant)
     return ESM3Runtime.random_init(
         seed=args.seed,
         trunk_cfg=esm3_tiny(head_type="structure", dtype="float32"),
         decoder_cfg=DecoderConfig(d_model=64, n_heads=2, n_layers=2,
                                   dtype="float32"),
-        device=args.device)
+        device=args.device, quant=args.quant)
 
 
 def get_argparser():
@@ -69,7 +72,8 @@ def get_argparser():
     p.add_argument("--entropy_budget", type=float, default=1.0)
     p.add_argument("--ref_compat", action="store_true")
     p.add_argument("--quant", type=str, default="none",
-                   choices=["none", "int8"])
+                   choices=["none", "int8"],
+                   help="int8 = W8A8 trunk projections (ops/quant.py).")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--model_scale", type=str, default="full",
                    choices=["full", "tiny"],
@@ -92,12 +96,14 @@ def get_argparser():
 
 def main(argv=None, runtime: ESM3Runtime | None = None):
     """Run the CLI; ``runtime`` optionally supplies an already built
-    runtime in place of the one ``--ckpt``/``--model_scale`` describe."""
+    runtime in place of the one ``--ckpt``/``--model_scale`` describe.
+    With ``--quant int8`` a runtime whose trunk is not int8 yet is
+    quantized, which raises on matmul weights held in bf16: build such a
+    runtime with ``build_runtime`` or ``random_init(quant="int8")``."""
     args = get_argparser().parse_args(argv)
     if args.mode != "ddpm":
         _not_ported(f"--mode {args.mode}")
-    for flag, on in (("--quant int8", args.quant != "none"),
-                     ("--mask_ids/--filled_ids",
+    for flag, on in (("--mask_ids/--filled_ids",
                       bool(args.mask_ids or args.filled_ids)),
                      ("--refine", args.refine),
                      ("--profile", bool(args.profile)),
@@ -115,6 +121,10 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
 
     if runtime is None:
         runtime = build_runtime(args)
+    elif args.quant == "int8" and runtime.trunk.cfg.quant != "int8":
+        runtime = runtime.quantize("int8")
+    if args.quant == "int8":
+        print("[quant] trunk projections running W8A8 int8")
     sampler = EnsembleSampler(runtime, plan_policy=args.plan)
 
     targets = []

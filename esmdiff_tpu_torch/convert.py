@@ -6,7 +6,9 @@ sigma embedder or VQ decoder.  numpy in, nothing else: this module imports
 neither JAX nor the JAX package.
 
 Mapping (the port's modules use the flax names, so only leaves change):
-  - a Dense ``kernel`` (in, out) becomes ``weight`` (out, in);
+  - a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), and a
+    ``QuantDense`` ``kernel_q`` (in, out) int8 (``quantize_trunk_params``'s
+    layout) becomes ``kernel_q`` (out, in), beside its ``scale`` (out,);
   - an Embed ``embedding`` becomes ``weight``; every other leaf keeps its
     name (``scale``, ``bias``, ``rotation_scale``, ...);
   - the ``nn.scan``-stacked layers ``<stack>/blocks/block/...`` (leading
@@ -49,7 +51,7 @@ def flax_to_state_dict(tree: Mapping, prefix: str = "") -> dict:
             out.update(flax_to_state_dict(val, f"{prefix}{sub}."))
         else:
             arr = np.asarray(val)
-            if key == "kernel":
+            if key in ("kernel", "kernel_q"):
                 # a stacked kernel (layer, in, out) stays stacked until the
                 # caller above unstacks it
                 arr = np.swapaxes(arr, -1, -2)

@@ -10,12 +10,16 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means ``"cuda"``; a CUDA request without a card raises."""
+    """``None`` means ``"cuda"``; a CUDA request without a card raises.  A
+    CUDA device comes back with its index, so work issued from any thread
+    (the server's handler threads) names the card explicitly."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the port "
             "on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -22,6 +22,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from esmdiff_tpu_torch.core import constants as C
+from esmdiff_tpu_torch.ops.packing import packed_positions, packed_segment_ids
 from .noise import LogLinearNoise, Noise
 
 NEG_INFINITY = -1e6
@@ -94,34 +95,57 @@ class MDLM:
         return sigma
 
     def forward_logits(self, xt, condition_seq, sigma,
-                       shield_specials: bool = False, lengths=None):
+                       shield_specials: bool = False, sequence_id=None,
+                       lengths=None, pack: int = 1, positions=None):
         """Conditioned forward -> (float32 logits, sequence logits or None).
 
         The logits are raw (JAX's ``parameterize=False``): only the
         mask-token and, optionally, special-token shields are applied —
         enough for Gumbel-max sampling, which is invariant to the
-        log-softmax normalisation."""
+        log-softmax normalisation.
+
+        ``pack`` > 1 runs the trunk on a sequence-packed view: ``pack`` rows
+        to a device row under a block-diagonal segment mask, positions
+        restarting per segment (ops/packing.py); the same function, and the
+        outputs come back at (B, L).  It needs B % pack == 0 and raises with
+        an explicit ``sequence_id`` (already-packed input)."""
         B, L = xt.shape
         aux = None
         if sigma is not None:
             cond = self.sigma_embedder(self._process_sigma(sigma))
             aux = cond[:, None, :].expand(B, L, cond.shape[-1])
+        if pack > 1:
+            if sequence_id is not None:
+                raise ValueError("pack > 1 is incompatible with an explicit "
+                                 "sequence_id (already-packed input)")
+            sequence_id = packed_segment_ids(lengths, L, pack,
+                                             device=xt.device)
+            positions = packed_positions(L, pack, device=xt.device)
+            lengths = None
+            xt = xt.reshape(B // pack, pack * L)
+            condition_seq = condition_seq.reshape(B // pack, pack * L)
+            if aux is not None:
+                aux = aux.reshape(B // pack, pack * L, -1)
         out = self.net(structure_tokens=xt, sequence_tokens=condition_seq,
-                       lengths=lengths, auxiliary_embeddings=aux)
+                       sequence_id=sequence_id, lengths=lengths,
+                       positions=positions, auxiliary_embeddings=aux)
         # the head's float32 output is fresh: shield it in place
-        logits = out.structure_logits.float()
+        logits = out.structure_logits.float().reshape(B, L, -1)
         logits[..., self.cfg.mask_index] += NEG_INFINITY
         if shield_specials:
             shield_special_tokens(logits)
         seq_logits = (out.sequence_logits if self.cfg.sequence_prediction
                       else None)
+        if seq_logits is not None:
+            seq_logits = seq_logits.reshape(B, L, -1)
         return logits, seq_logits
 
     @torch.no_grad()
     def ddpm_sample(self, sequence_tokens, noise_source: NoiseSource,
                     num_steps: int = 25, eps: float = 1e-5, input_prior=None,
                     sample_max_t: float = 1.0, shield_specials: bool = True,
-                    lengths=None):
+                    sequence_id=None, lengths=None, pack: int = 1,
+                    positions=None):
         """Ancestral denoising: ``num_steps`` sampling steps plus, with
         ``noise_removal``, a final argmax step.
 
@@ -129,6 +153,10 @@ class MDLM:
         input_prior: optional (B, L) partially-masked start tokens.
         noise_source: the draws (see module docstring), e.g.
         ``RowGeneratorNoise``.
+        pack: sequence-packing factor of the trunk forwards; the sampler's
+        state and draws stay at (B, L), so a seed's tokens do not change.
+        sequence_id, positions: an already-packed layout (the cross-length
+        packed engine, api/generation.py), passed to every trunk forward.
         Returns (B, L) int64 structure tokens (with BOS/EOS slots).
         """
         cfg = self.cfg
@@ -152,7 +180,8 @@ class MDLM:
             mc_s = (1 - torch.exp(-sigma_s))[:, None]
             z, _ = self.forward_logits(
                 x, sequence_tokens, sigma_t[:, None],
-                shield_specials=shield_specials, lengths=lengths)
+                shield_specials=shield_specials, sequence_id=sequence_id,
+                lengths=lengths, pack=pack, positions=positions)
             copy = x != cfg.mask_index
             if i == num_steps:
                 # noise removal: argmax of p(x0) at still-masked positions;

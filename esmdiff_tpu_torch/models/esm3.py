@@ -16,6 +16,7 @@ from torch import nn
 
 from esmdiff_tpu_torch.core import constants as C
 from esmdiff_tpu_torch.device import torch_dtype
+from esmdiff_tpu_torch.nn.attention import sequence_id_mask
 from esmdiff_tpu_torch.nn.embed import EncodeInputs
 from esmdiff_tpu_torch.nn.geometric import GeometricAttention
 from esmdiff_tpu_torch.nn.heads import (ESMOutput, OutputHeads,
@@ -43,6 +44,9 @@ class ESM3Config:
     # attention kernel, "xla" = plain attention (nn/layers.py)
     attn_backend: str = "auto"
     qkv_backend: str = "xla"  # "fused" = LN + QKV + QK-LN kernel
+    # "int8" = W8A8 attention/FFN projections (ops/quant.py), inference
+    # only; weights converted by ops.quant.quantize_trunk_params
+    quant: str = "none"
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -81,15 +85,18 @@ class TransformerBlock(nn.Module):
         self.scale = cfg.residue_scaling_factor
         self.attn = MultiHeadAttention(cfg.d_model, cfg.n_heads, dtype=dt,
                                        attn_backend=cfg.attn_backend,
-                                       qkv_backend=cfg.qkv_backend)
+                                       qkv_backend=cfg.qkv_backend,
+                                       quant=cfg.quant)
         # owned, so checkpoints load strictly
         self.geom_attn = (GeometricAttention(cfg.d_model, cfg.v_heads,
                                              dtype=dt)
                           if use_geom_attn else None)
-        self.ffn = SwiGLUFFN(cfg.d_model, cfg.ffn_hidden, dtype=dt)
+        self.ffn = SwiGLUFFN(cfg.d_model, cfg.ffn_hidden, dtype=dt,
+                             quant=cfg.quant)
 
-    def forward(self, x, rot_cos, rot_sin, lengths=None):
-        x = x + self.attn(x, rot_cos, rot_sin, lengths=lengths) / self.scale
+    def forward(self, x, rot_cos, rot_sin, mask=None, lengths=None):
+        x = x + self.attn(x, rot_cos, rot_sin, mask=mask,
+                          lengths=lengths) / self.scale
         return x + self.ffn(x) / self.scale
 
 
@@ -102,15 +109,21 @@ class TransformerStack(nn.Module):
             for i in range(cfg.n_layers))
         self.norm = LayerNorm(cfg.d_model)
 
-    def forward(self, x, lengths=None):
-        """Returns (final-norm output, pre-norm output).  ``lengths``:
-        optional (B,) prefix lengths (the kernel path).  The packed
-        ``sequence_id`` form comes with sequence packing, in a later slice."""
+    def forward(self, x, sequence_id=None, lengths=None, positions=None):
+        """Returns (final-norm output, pre-norm output).
+
+        Masking, as in ``nn/attention.py``: ``lengths`` (B,) = prefix
+        padding (the kernel path); ``sequence_id`` (B, L) = packed segments,
+        a block-diagonal mask (the plain path).  Passing both raises.
+        positions: rotary positions, (L,) or (B, L), for packed rows."""
+        if sequence_id is not None and lengths is not None:
+            raise ValueError("pass either sequence_id or lengths, not both")
         cfg = self.cfg
         rot_cos, rot_sin = rotary_tables(x.shape[1], cfg.d_model // cfg.n_heads,
-                                         device=x.device)
+                                         device=x.device, positions=positions)
+        mask = sequence_id_mask(sequence_id)
         for block in self.blocks:
-            x = block(x, rot_cos, rot_sin, lengths=lengths)
+            x = block(x, rot_cos, rot_sin, mask=mask, lengths=lengths)
         return self.norm(x), x
 
 
@@ -187,8 +200,13 @@ class ESM3(nn.Module):
     def forward(self, structure_tokens=None, sequence_tokens=None,
                 ss8_tokens=None, sasa_tokens=None, function_tokens=None,
                 residue_annotation_tokens=None, average_plddt=None,
-                per_res_plddt=None, structure_coords=None, lengths=None,
+                per_res_plddt=None, structure_coords=None, chain_id=None,
+                sequence_id=None, lengths=None, positions=None,
                 auxiliary_embeddings=None) -> ESMOutput:
+        """The trunk's forward.  ``sequence_id``/``lengths``/``positions``
+        as in ``TransformerStack.forward``; ``chain_id`` is taken for JAX's
+        signature and used by geometric attention only, which runs with
+        coordinates and is not ported yet (``embed`` raises on them)."""
         x = self.embed(
             structure_tokens=structure_tokens,
             sequence_tokens=sequence_tokens, ss8_tokens=ss8_tokens,
@@ -199,5 +217,6 @@ class ESM3(nn.Module):
             auxiliary_embeddings=auxiliary_embeddings)
         # no coordinates: every frame is masked and geometric attention is
         # an exact no-op, so the stack skips it
-        x, embedding = self.transformer(x, lengths=lengths)
+        x, embedding = self.transformer(x, sequence_id=sequence_id,
+                                        lengths=lengths, positions=positions)
         return self.output_heads(x, embedding)

@@ -32,11 +32,12 @@ class DecoderConfig:
     trans_scale: float = 10.0
     predict_ptm: bool = True
     dtype: str = "bfloat16"
+    quant: str = "none"  # "int8" = W8A8 stack projections (ops/quant.py)
 
     def stack_config(self) -> ESM3Config:
         return ESM3Config(d_model=self.d_model, n_heads=self.n_heads,
                           v_heads=0, n_layers=self.n_layers, n_layers_geom=0,
-                          dtype=self.dtype)
+                          dtype=self.dtype, quant=self.quant)
 
 
 class Dim6RotStructureHead(nn.Module):

@@ -1,7 +1,8 @@
 """Core transformer building blocks of the ESM3 trunk, in PyTorch.
 
-Port of ``esmdiff_tpu/nn/layers.py`` (the ``quant="none"`` branch, with
-both ``qkv_backend`` and every ``attn_backend``).  Submodule and parameter
+Port of ``esmdiff_tpu/nn/layers.py``: both ``qkv_backend``s, every
+``attn_backend``, and ``quant="int8"`` (W8A8 projections, ``ops/quant.py``,
+with the pre-projection LayerNorm's gamma folded into the weights).  Submodule and parameter
 names follow the flax modules (``ln``, ``qkv``, ``q_ln``, ...), and the
 fused-QKV path owns the same parameters as the unfused one, so
 ``convert.py`` maps a flax tree made with either backend onto a state dict
@@ -24,6 +25,7 @@ from torch import nn
 
 from esmdiff_tpu_torch.ops import fused_qkv as qkv_ops
 from esmdiff_tpu_torch.ops import small_attention as small_ops
+from esmdiff_tpu_torch.ops.quant import QuantDense
 
 from .attention import dot_product_attention, kernel_op
 from .rotary import apply_rotary
@@ -31,6 +33,7 @@ from .rotary import apply_rotary
 # the values the JAX package's ESM3Config takes
 ATTN_BACKENDS = ("auto", "flash", "small", "xla")
 QKV_BACKENDS = ("xla", "fused")
+QUANT_MODES = ("none", "int8")
 
 
 class Dense(nn.Module):
@@ -65,11 +68,14 @@ class Embed(nn.Module):
 
 class LayerNorm(nn.Module):
     """LayerNorm with float32 statistics (population variance, eps 1e-5), a
-    scale and an optional bias; returns the input's dtype."""
+    scale and an optional bias; returns the input's dtype.  With
+    ``use_scale=False`` it owns no scale (the int8 path, where gamma is
+    folded into the next projection's weights)."""
 
-    def __init__(self, dim: int, use_bias: bool = False):
+    def __init__(self, dim: int, use_bias: bool = False,
+                 use_scale: bool = True):
         super().__init__()
-        self.scale = nn.Parameter(torch.empty(dim))
+        self.scale = nn.Parameter(torch.empty(dim)) if use_scale else None
         self.bias = nn.Parameter(torch.empty(dim)) if use_bias else None
 
     def forward(self, x):
@@ -91,10 +97,13 @@ class MultiHeadAttention(nn.Module):
     ``dot_product_attention`` with that backend.  When autograd records,
     the kernels are reached through their ``autograd.Function``s, so their
     outputs carry gradients (``kernel_op``).
+    quant: "int8" = the qkv and output projections are ``QuantDense`` and
+    ``ln`` owns no scale; it raises with ``qkv_backend="fused"``, as JAX.
     """
 
     def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16,
-                 attn_backend: str = "auto", qkv_backend: str = "xla"):
+                 attn_backend: str = "auto", qkv_backend: str = "xla",
+                 quant: str = "none"):
         super().__init__()
         if attn_backend not in ATTN_BACKENDS:
             raise ValueError(f"attn_backend must be one of {ATTN_BACKENDS}; "
@@ -102,13 +111,21 @@ class MultiHeadAttention(nn.Module):
         if qkv_backend not in QKV_BACKENDS:
             raise ValueError(f"qkv_backend must be one of {QKV_BACKENDS}; "
                              f"got {qkv_backend!r}")
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant must be one of {QUANT_MODES}; got "
+                             f"{quant!r}")
+        if quant == "int8" and qkv_backend == "fused":
+            raise ValueError("quant='int8' is incompatible with "
+                             "qkv_backend='fused'")
         self.d_model, self.n_heads = d_model, n_heads
         self.attn_backend, self.qkv_backend = attn_backend, qkv_backend
-        self.ln = LayerNorm(d_model)
-        self.qkv = Dense(d_model, 3 * d_model, use_bias=False, dtype=dtype)
+        int8 = quant == "int8"
+        proj = QuantDense if int8 else Dense
+        self.ln = LayerNorm(d_model, use_scale=not int8)
+        self.qkv = proj(d_model, 3 * d_model, use_bias=False, dtype=dtype)
         self.q_ln = LayerNorm(d_model)
         self.k_ln = LayerNorm(d_model)
-        self.out = Dense(d_model, d_model, use_bias=False, dtype=dtype)
+        self.out = proj(d_model, d_model, use_bias=False, dtype=dtype)
 
     def forward(self, x, rot_cos, rot_sin, mask=None, lengths=None):
         B, L, _ = x.shape
@@ -140,13 +157,18 @@ class MultiHeadAttention(nn.Module):
 
 
 class SwiGLUFFN(nn.Module):
-    """Pre-norm SwiGLU MLP: LN -> Dense(d, 2h) -> silu(a)*b -> Dense(h, d)."""
+    """Pre-norm SwiGLU MLP: LN -> Dense(d, 2h) -> silu(a)*b -> Dense(h, d);
+    with ``quant="int8"`` both projections are ``QuantDense`` and ``ln``
+    owns no scale."""
 
-    def __init__(self, d_model: int, hidden: int, dtype=torch.bfloat16):
+    def __init__(self, d_model: int, hidden: int, dtype=torch.bfloat16,
+                 quant: str = "none"):
         super().__init__()
-        self.ln = LayerNorm(d_model)
-        self.up = Dense(d_model, 2 * hidden, use_bias=False, dtype=dtype)
-        self.down = Dense(hidden, d_model, use_bias=False, dtype=dtype)
+        int8 = quant == "int8"
+        proj = QuantDense if int8 else Dense
+        self.ln = LayerNorm(d_model, use_scale=not int8)
+        self.up = proj(d_model, 2 * hidden, use_bias=False, dtype=dtype)
+        self.down = proj(hidden, d_model, use_bias=False, dtype=dtype)
 
     def forward(self, x):
         a, b = self.up(self.ln(x)).chunk(2, dim=-1)
@@ -212,7 +234,7 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             m.weight.normal_(0.0, m.weight.shape[0] ** -0.5,
                              generator=generator)
             own.pop("weight")
-        elif isinstance(m, LayerNorm):
+        elif isinstance(m, LayerNorm) and m.scale is not None:
             own.pop("scale").fill_(1.0)
         for p in own.values():
             p.zero_()

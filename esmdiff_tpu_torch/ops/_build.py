@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -31,6 +32,7 @@ PTR, INT, LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 logs: dict[str, str] = {}   # source name -> nvcc output
 _libs: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # the server's threads may reach a first use
 
 
 def _library(name: str) -> Path:
@@ -70,13 +72,14 @@ def build(*names: str) -> None:
 
 
 def _load(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        build(name)
-        lib = ctypes.CDLL(str(_library(name)))
-        lib.esmdiff_cuda_error_string.restype = ctypes.c_char_p
-        lib.esmdiff_cuda_error_string.argtypes = [INT]
-        _libs[name] = lib
-    return _libs[name]
+    with _load_lock:
+        if name not in _libs:
+            build(name)
+            lib = ctypes.CDLL(str(_library(name)))
+            lib.esmdiff_cuda_error_string.restype = ctypes.c_char_p
+            lib.esmdiff_cuda_error_string.argtypes = [INT]
+            _libs[name] = lib
+        return _libs[name]
 
 
 def launch(name: str, entry: str, argtypes: list, device: torch.device,

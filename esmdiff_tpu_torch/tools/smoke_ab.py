@@ -13,7 +13,7 @@ which time the host's enqueue where it is longer than the kernel) has that
 function replaced by ``tools/timing.py``'s ``device_ms``; a newer one
 already uses it.  Every run's output goes to stdout with a ``[run i
 label]`` prefix; the last line is one JSON object with, per run, its
-exit code, its paths' conf/s and ms/step, and each kernel's ms and
+exit code, its paths' conf/s and ms/step per target, and each kernel's ms and
 host ms per call at every shape it printed.  Exits non-zero if a run
 failed.
 """
@@ -51,8 +51,12 @@ def run(i, label, root):
         for prefix, path in PATHS.items():
             if line.startswith(prefix):
                 rec = json.loads(line[len(prefix):])
+                # per target since the paths drive two; before, BPTI only
+                targets = rec.get("targets", {"bpti": rec})
                 out["paths"][path] = {
-                    k: rec[k] for k in ("conformations_per_s", "ms_per_step")}
+                    t: {k: r[k] for k in ("conformations_per_s",
+                                          "ms_per_step")}
+                    for t, r in targets.items()}
         if line.startswith("[kernel] "):
             name, rec = line[len("[kernel] "):].split(" ", 1)
             rec = json.loads(rec)

@@ -12,6 +12,7 @@ import torch
 
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime
 from esmdiff_tpu_torch.cli import sample as cli
+from esmdiff_tpu_torch.cli import serve as serve_cli
 from esmdiff_tpu_torch.models.esm3 import esm3_tiny
 from esmdiff_tpu_torch.models.vqvae import DecoderConfig
 
@@ -39,7 +40,21 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 31  # every module was imported
+    assert int(res.stdout.split()[-1]) >= 34  # every module was imported
+
+
+def test_serving_modules_import_without_jax():
+    """The serving slice's modules by name (the walk above covers them as
+    well): the int8 path, packing and the server."""
+    probe = ("import sys\nsys.modules['jax'] = None\n"
+             "sys.modules['flax'] = None\n"
+             "import esmdiff_tpu_torch.ops.quant, esmdiff_tpu_torch.ops.packing"
+             ", esmdiff_tpu_torch.cli.serve\n"
+             "assert not [m for m in sys.modules if m.startswith("
+             "'esmdiff_tpu.')]\n")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
 
 
 def test_no_jax_import_lines():
@@ -72,9 +87,19 @@ def test_cli_without_device_raises(no_cuda, tmp_path):
     assert not (tmp_path / "bpti.pdb").exists()
 
 
+def test_server_without_device_raises(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_cli.main(["--model_scale", "tiny", "--quant", "int8",
+                        "--port", "0"])
+
+
 def test_unported_modes_raise(tmp_path):
-    for extra in (["--mode", "gibbs"], ["--quant", "int8"],
+    for extra in (["--mode", "gibbs"], ["--data_parallel"],
                   ["--mask_ids", "1,2"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             cli.main(["--output", str(tmp_path), "--model_scale", "tiny",
                       "--device", "cpu", *extra])
+    for extra in (["--mode", "eb"], ["--data_parallel"]):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            serve_cli.main(["--model_scale", "tiny", "--device", "cpu",
+                            "--port", "0", *extra])

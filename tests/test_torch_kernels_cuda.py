@@ -15,6 +15,7 @@ from esmdiff_tpu_torch.nn.rotary import apply_rotary, rotary_tables
 from esmdiff_tpu_torch.ops import flash_attention as fa
 from esmdiff_tpu_torch.ops import fused_ffn as ff
 from esmdiff_tpu_torch.ops import fused_qkv as fq
+from esmdiff_tpu_torch.ops import quant
 from esmdiff_tpu_torch.ops import small_attention as sa
 
 pytestmark = pytest.mark.cuda
@@ -214,3 +215,84 @@ def test_kernels_reject_what_they_do_not_take(gen):
     q = torch.randn(1, 8, 2, 32, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="Dh=64"):
         fa.flash_attention(q, q, q)
+
+
+# the trunk's four int8 products (D -> 3D, D -> D, D -> 2H, H -> D) at its
+# width, and at a narrow one; rows at, below and above the card product's
+# limit (it takes > 16 rows: fewer are zero-padded, never sent to the CPU)
+@pytest.mark.parametrize("D,F", [(1536, 4608), (1536, 1536), (1536, 8192),
+                                 (4096, 1536), (256, 768)])
+@pytest.mark.parametrize("T", [4096, 100, 16, 1])
+def test_int8_dot_on_card(gen, T, D, F):
+    """The card's int8 product (torch._int_mm on the (F, D) weight's .t()
+    view) against the exact plain product: int8_dot bit for bit."""
+    x = torch.randn(T, D, device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.randn(F, D, device="cuda", generator=gen) * D ** -0.5
+    kq, scale = quant.quantize_weight(w)
+    assert kq.is_contiguous() and kq.shape == (F, D)
+    before = quant.launches
+    out = quant.int8_dot(x, kq, scale)
+    torch.cuda.synchronize()
+    assert quant.launches == before + 1
+    xq, sa_ = quant.quantize_activations(x)
+    o = quant.int8_mm_reference(xq, kq)
+    ref = (o.float() * sa_ * scale).to(torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and out.shape == (T, F)
+    assert torch.equal(out, ref)
+
+
+def test_packed_int8_trunk_on_card(gen):
+    """A 2-layer int8 trunk at D 256 (4 heads of 64), bf16: its logits with
+    two rows packed to a device row (segment mask, the plain path) against
+    the unpacked rows (prefix lengths, the flash kernel), on valid
+    positions, within twice the spread of the kernel's two plain roundings
+    (p cast before / after normalising), or 1e-2."""
+    from esmdiff_tpu_torch.models.esm3 import ESM3, esm3_tiny
+    from esmdiff_tpu_torch.nn.attention import plain_attention_with_lengths
+    from esmdiff_tpu_torch.nn.layers import cast_matmul_weights, init_params
+    from esmdiff_tpu_torch.ops.packing import (packed_positions,
+                                               packed_segment_ids)
+    from esmdiff_tpu_torch.ops.quant import quantize_trunk_params
+
+    cfg = esm3_tiny(d_model=256, n_heads=4, n_layers=2, head_type="structure")
+    with torch.device("cuda"):
+        fp = ESM3(cfg)
+        trunk = ESM3(esm3_tiny(d_model=256, n_heads=4, n_layers=2,
+                               head_type="structure", quant="int8"))
+    init_params(fp, torch.Generator(device="cuda").manual_seed(0))
+    trunk.load_state_dict(quantize_trunk_params(fp.state_dict()))
+    cast_matmul_weights(trunk)
+    B, L = 8, 64
+    seq = torch.randint(4, 24, (B, L), device="cuda", generator=gen)
+    lengths = torch.tensor([64, 60, 50, 64, 13, 1, 40, 64],
+                           dtype=torch.int32, device="cuda")
+
+    def unpacked(flash):
+        saved = fa.flash_attention
+        fa.flash_attention = flash
+        try:
+            return trunk(sequence_tokens=seq, lengths=lengths).structure_logits
+        finally:
+            fa.flash_attention = saved
+
+    with torch.no_grad():
+        before = (fa.launches, quant.launches)
+        packed = trunk(sequence_tokens=seq.reshape(B // 2, 2 * L),
+                       sequence_id=packed_segment_ids(lengths, L, 2),
+                       positions=packed_positions(L, 2, device="cuda"))
+        packed = packed.structure_logits.reshape(B, L, -1)
+        torch.cuda.synchronize()
+        assert fa.launches == before[0]           # the plain path only
+        assert quant.launches == before[1] + 4 * cfg.n_layers
+        kernel = unpacked(fa.flash_attention)
+        plain = unpacked(fa.flash_attention_reference)
+        other = unpacked(plain_attention_with_lengths)
+    valid = torch.arange(L, device="cuda")[None, :] < lengths[:, None]
+
+    def rel(a, b):
+        a, b = a[valid].float(), b[valid].float()
+        return ((a - b).norm() / b.norm()).item()
+
+    assert torch.isfinite(packed[valid]).all()
+    assert rel(packed, kernel) <= max(2 * rel(other, plain), 1e-2), (
+        rel(packed, kernel), rel(other, plain))
