@@ -35,7 +35,19 @@ Phases, each of which fails loudly (no error is caught):
   4. the fused path: the same trunk weights in the configuration
      qkv_backend="fused", attn_backend="small" (the decoder and the sigma
      embedder shared), driven and checked the same way;
-  5. the serve path: a full-width runtime built as the port's server builds
+  5. the gibbs path: a full-width stock-head runtime (ESM3Runtime.random_init
+     with head_type "esm3", seed 0: the 1.4B trunk with its 4096-way
+     structure head, the default path's decoder shared) through the CLI as
+     it ships, on both targets: gibbs (16 steps, T 1.4, top_p 0.9) and eb
+     (budget 1.0, at most 200 steps), 100 samples each, with exact launch
+     counts (eb's from the step count of each batch); the stock-head trunk
+     logits, kernel against plain version, gated as on the default path;
+     on one (64, 128) batch of the 118-residue chain, the card against the
+     CPU on one step's primitives (identical commit masks; top-p kept sets
+     apart in at most 1e-4 of positions), and, printed without a gate, the
+     share of a gibbs step and of an eb step spent outside the trunk
+     forward with the device ms of each part;
+  6. the serve path: a full-width runtime built as the port's server builds
      it (``--quant int8``: the trunk quantized from the same seed's float32
      weights, W8A8), ``int8_dot`` on the card against its plain version bit
      for bit at the trunk's four products (T 4096), the int8 trunk's
@@ -46,14 +58,16 @@ Phases, each of which fails loudly (no error is caught):
      server on 127.0.0.1 over HTTP: /warmup (with a cross-length packed
      run), BPTI x 100 (the plan [64, 32, 8], pack 2: a 100-MODEL PDB),
      three concurrent requests of 58, 120 and 250 residues coalesced into
-     one group, a bad request (400) and /healthz, with exact launch counts;
+     one group, the same three as a coalesced gibbs group, one eb request
+     (120 residues, 8 samples, a PDB), a bad request (400) and /healthz,
+     with exact launch counts;
      and, printed without a gate, int8 against bf16 logits, BPTI's ms per
      step at JAX's pack against pack 1, the int8 trunk's ms per step at row
      widths T 64, 128 and 256, the int8 products' time against bf16
      ``F.linear``, and the host and device time of one step's draws for 64
      samples (a generator a row, and the packed engine's per-segment
      placement);
-  6. print the card, each path's numbers, the kernels line, and as the last
+  7. print the card, each path's numbers, the kernels line, and as the last
      line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA card or without the
 rest of the repo beside it.
@@ -85,6 +99,10 @@ TARGET = "data/targets/bpti"
 # 118 residues: bucket 128, where the sampler does not pack
 L128_TARGET = Path("data/targets/apo/1jm4.B.pdb")
 NUM_SAMPLES, NUM_STEPS, DECODE_BATCH = 100, 25, 32
+# gibbs as the CLI ships it (--num_steps 16, T 1.4, top_p 0.9); eb with
+# --num_steps 25, so at most 200 steps, budget 1.0 (the CLI's defaults)
+GIBBS_STEPS, GIBBS_TEMPERATURE, GIBBS_TOP_P = 16, 1.4, 0.9
+EB_NUM_STEPS = 25
 KERNELS = ("flash_attention", "small_attention", "fused_qkv", "fused_ffn")
 REPLACES = {
     "flash_attention": "esmdiff_tpu/ops/flash_attention.py:37",
@@ -364,38 +382,43 @@ def kernel_vs_plain(torch, runtime, kernel, plain, other):
     return rel(logits[0], logits[1]), rel(logits[2], logits[1])
 
 
-def path_launches(trunk_cfg, dec_layers, lw, fused):
+def path_launches(trunk_cfg, dec_layers, lw, fused, forwards=None):
     """Each kernel's launches for one target's request through the CLI
-    (plan "single"), from its plan: a trunk forward per step and batch,
-    each layer's attention on the kernel only where the batch's pack
-    factor is 1 (packed rows take the plain masked path), and one decoder
-    launch per layer and decode chunk."""
+    (plan "single"), from its plan: ``forwards[i]`` trunk forwards for
+    batch i (ddpm: NUM_STEPS + 1 each), each layer's attention on the
+    kernel only where the batch's pack factor is 1 (packed rows take the
+    plain masked path), and one decoder launch per layer and decode
+    chunk."""
     from esmdiff_tpu_torch.api.generation import bucket_length, plan_batches
     from esmdiff_tpu_torch.ops.packing import pack_factor
 
     plan = plan_batches(lw, NUM_SAMPLES, policy="single")
-    forwards = trunk_cfg.n_layers * (NUM_STEPS + 1)
-    unpacked = forwards * sum(pack_factor(b, bucket_length(lw)) == 1
-                              for b in plan)
+    if forwards is None:
+        forwards = [NUM_STEPS + 1] * len(plan)
+    layers = trunk_cfg.n_layers
+    unpacked = layers * sum(f for b, f in zip(plan, forwards)
+                            if pack_factor(b, bucket_length(lw)) == 1)
     decoder = dec_layers * -(-NUM_SAMPLES // DECODE_BATCH)
     if not fused:
         return {"flash_attention": unpacked + decoder, "small_attention": 0,
                 "fused_qkv": 0, "fused_ffn": 0}
     return {"flash_attention": decoder, "small_attention": unpacked,
-            "fused_qkv": forwards * len(plan), "fused_ffn": 0}
+            "fused_qkv": layers * sum(forwards), "fused_ffn": 0}
 
 
-def drive(torch, runtime, ops, name, targets, out_dir):
-    """The path as the CLI ships it: one untimed request over every target
-    (1 step, the same batches and L: cuBLAS set-up and allocator growth
-    fall outside the timed runs), then for each target its own counted and
-    timed request.  targets: {key: (directory, expected launches)}.
+def drive(torch, runtime, ops, name, targets, out_dir, mode="ddpm",
+          num_steps=NUM_STEPS):
+    """The path as the CLI ships it (``--mode mode``): one untimed request
+    over every target (1 step, the same batches and L: cuBLAS set-up and
+    allocator growth fall outside the timed runs), then for each target its
+    own counted and timed request.  targets: {key: (directory, expected
+    launches, or a function of the CLI's report that gives them)}.
     Checks each target's launches and PDB; returns {key: its numbers}."""
     from esmdiff_tpu_torch.cli import sample as cli
 
-    def run_cli(dirs, out, num_steps):
+    def run_cli(dirs, out, steps):
         return cli.main(["--input", *map(str, dirs), "--output", str(out),
-                         "--mode", "ddpm", "--num_steps", str(num_steps),
+                         "--mode", mode, "--num_steps", str(steps),
                          "--num_samples", str(NUM_SAMPLES), "--seed", "0"],
                         runtime=runtime)
 
@@ -407,8 +430,10 @@ def drive(torch, runtime, ops, name, targets, out_dir):
         torch.cuda.reset_peak_memory_stats()
         for op in ops.values():
             op.launches = 0
-        report = run_cli([directory], out_dir / key, NUM_STEPS)[0]
+        report = run_cli([directory], out_dir / key, num_steps)[0]
         launches = {k: op.launches for k, op in ops.items()}
+        if callable(expected):
+            expected = expected(report)
         if launches != expected:
             raise AssertionError(f"{name}, {key}: kernel launches "
                                  f"{launches}, expected {expected}")
@@ -577,6 +602,179 @@ def plan_ms_per_step(torch, sampler, sequence, plan, pack):
     return 1e3 * (time.time() - t0) / (len(plan) * (NUM_STEPS + 1))
 
 
+def unmask_anatomy(torch, sampler, sequence, gen):
+    """One (64, Lb) batch of ``sequence`` (the engine's rows, request seed
+    0) on the stock-head trunk: the card against the CPU on one step's
+    primitives (the same fp32 inputs: ``select_top_by_confidence``'s commit
+    masks identical, ``top_p_filter``'s kept sets apart in at most 1e-4 of
+    positions), and where a step's time goes: host-clock ms of 16 trunk
+    forwards alone, of a gibbs run of 16 steps and of an eb run cut at 16
+    steps, and the device ms of the parts outside the trunk."""
+    from esmdiff_tpu_torch.core import constants as C
+    from esmdiff_tpu_torch.diffusion import gibbs
+
+    B = 64
+    rows, init, dmask, ids, _ = sampler._request_rows([sequence], [B], [0])
+    dev = sampler.runtime.device
+    seq_b = torch.as_tensor(rows, device=dev)
+    lengths = (seq_b != C.SEQUENCE_PAD_TOKEN).sum(dim=-1, dtype=torch.int32)
+    forward = sampler._trunk_forward(sampler._pack(B, rows.shape[1]))
+
+    def fwd(tokens):
+        return forward(tokens, seq_b, lengths)
+
+    init_t = torch.as_tensor(init, device=dev)
+    dmask_t = torch.as_tensor(dmask, device=dev)
+    uniforms = sampler.uniform_factory(ids, rows.shape[1],
+                                       sampler._logits_width(), dev)
+
+    # one step's inputs, then each primitive on the card and on the CPU
+    logits = fwd(init_t)
+    scaled = logits / GIBBS_TEMPERATURE
+    kept = gibbs.top_p_filter(scaled, GIBBS_TOP_P) > -1e8
+    kept_cpu = gibbs.top_p_filter(scaled.cpu(), GIBBS_TOP_P) > -1e8
+    top_p_differ = (kept.cpu() != kept_cpu).sum().item()
+    sampled = gibbs._gumbel_sample(
+        torch.where(kept, scaled, -1e9), uniforms(0))
+    conf = torch.log_softmax(logits, dim=-1).gather(
+        -1, sampled[..., None])[..., 0]
+    still = (init_t == C.STRUCTURE_MASK_TOKEN) & dmask_t
+    n_new = torch.randint(0, 40, (B,), device=dev, generator=gen)
+    commit = gibbs.select_top_by_confidence(conf, still, n_new)
+    commit_cpu = gibbs.select_top_by_confidence(conf.cpu(), still.cpu(),
+                                                n_new.cpu())
+    if not torch.equal(commit.cpu(), commit_cpu):
+        raise AssertionError("select_top_by_confidence: the card's commit "
+                             "masks differ from the CPU's")
+    if top_p_differ > 1e-4 * kept_cpu.numel():
+        raise AssertionError(f"top_p_filter: {top_p_differ} kept-set "
+                             f"positions differ between card and CPU")
+
+    def host(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    _, trunk_ms = host(lambda: [fwd(init_t) for _ in range(GIBBS_STEPS)])
+    _, gibbs_ms = host(lambda: gibbs.iterative_unmask_sample(
+        fwd, uniforms, init_t, dmask_t, num_steps=GIBBS_STEPS,
+        temperature=GIBBS_TEMPERATURE, top_p=GIBBS_TOP_P))
+    (_, eb_steps), eb_ms = host(lambda: gibbs.entropy_bounded_unmask_sample(
+        fwd, uniforms, init_t, dmask_t, entropy_budget=1.0,
+        temperature=GIBBS_TEMPERATURE, top_p=GIBBS_TOP_P,
+        max_steps=GIBBS_STEPS))
+
+    def entropy():
+        logp = torch.log_softmax(logits, dim=-1)
+        return -(torch.exp(logp) * logp).sum(dim=-1)
+
+    return {
+        "B": B, "L": rows.shape[1],
+        "card_vs_cpu": {"select_top_commit_masks_equal": True,
+                        "top_p_kept_positions_differing": top_p_differ,
+                        "top_p_positions": kept_cpu.numel()},
+        "host_ms_16_steps": {"trunk_forwards": trunk_ms, "gibbs": gibbs_ms,
+                             "eb": eb_ms, "eb_steps": eb_steps},
+        "outside_trunk_share": {"gibbs": 1 - trunk_ms / gibbs_ms,
+                                "eb": 1 - trunk_ms / eb_ms},
+        "device_ms_per_step": {
+            "trunk_forward": device_ms(lambda: fwd(init_t), iters=10),
+            "top_p_filter": device_ms(
+                lambda: gibbs.top_p_filter(scaled, GIBBS_TOP_P), iters=10),
+            "uniforms": device_ms(lambda: uniforms(0), iters=10),
+            "select_top_by_confidence": device_ms(
+                lambda: gibbs.select_top_by_confidence(conf, still, n_new),
+                iters=10),
+            "eb_entropy": device_ms(entropy, iters=10)},
+    }
+
+
+def gibbs_path(torch, runtime, ops, target_dirs, lws, gen):
+    """Phase 5 (module docstring).  Returns (numbers, launches summed over
+    both modes and targets)."""
+    from esmdiff_tpu_torch.api.generation import EnsembleSampler, plan_batches
+    from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
+    from esmdiff_tpu_torch.models.esm3 import ESM3Config
+    from esmdiff_tpu_torch.nn.attention import plain_attention_with_lengths
+
+    fa = ops["flash_attention"]
+    t0 = time.time()
+    rt = ESM3Runtime.random_init(
+        seed=0, trunk_cfg=ESM3Config(head_type="esm3"), device="cuda")
+    stock_rt = ESM3Runtime(rt.trunk, runtime.decoder, rt.sigma_embedder,
+                           device="cuda")
+    del rt
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    trunk_cfg = stock_rt.trunk.cfg
+    dec_layers = runtime.decoder.cfg.n_layers
+
+    def plan(key):
+        return plan_batches(lws[key], NUM_SAMPLES, policy="single")
+
+    g_driven = drive(
+        torch, stock_rt, ops, "gibbs path, gibbs",
+        {key: (d, path_launches(trunk_cfg, dec_layers, lws[key], False,
+                                [GIBBS_STEPS] * len(plan(key))))
+         for key, d in target_dirs.items()},
+        ROOT / "output" / "chip_smoke_gibbs", mode="gibbs",
+        num_steps=GIBBS_STEPS)
+    e_driven = drive(
+        torch, stock_rt, ops, "gibbs path, eb",
+        {key: (d, lambda report, key=key: path_launches(
+            trunk_cfg, dec_layers, lws[key], False, report["eb_steps"]))
+         for key, d in target_dirs.items()},
+        ROOT / "output" / "chip_smoke_eb", mode="eb",
+        num_steps=EB_NUM_STEPS)
+
+    def numbers(driven, forwards):
+        out = {}
+        for key, n in driven.items():
+            r = n["report"]
+            steps = forwards(key, r)
+            out[key] = {
+                "L": r["L"], "batches": plan(key),
+                "sampling_s": r["sampling_sec"], "total_s": r["total_sec"],
+                "conformations_per_s": NUM_SAMPLES / r["total_sec"],
+                "trunk_steps": steps,
+                "ms_per_step": 1e3 * r["sampling_sec"] / steps,
+                "peak_memory_gib": n["peak_memory_gib"],
+                "launches": n["launches"],
+                **({"eb_steps": r["eb_steps"]} if "eb_steps" in r else {})}
+        return out
+
+    rel, floor = kernel_vs_plain(
+        torch, stock_rt,
+        {}, {(fa, "flash_attention"): fa.flash_attention_reference},
+        {(fa, "flash_attention"): plain_attention_with_lengths})
+    if not rel <= 2 * floor:
+        raise AssertionError(f"full-width stock-head trunk logits, kernel vs "
+                             f"plain version: relative L2 {rel}, more than "
+                             f"twice the two plain roundings' {floor}")
+    seq_128 = ESMProtein.from_pdb(
+        next(target_dirs[L128_TARGET.stem].glob("*.pdb"))).sequence
+    anatomy = unmask_anatomy(torch, EnsembleSampler(stock_rt), seq_128, gen)
+    launches = {k: sum(n["launches"][k]
+                       for driven in (g_driven, e_driven)
+                       for n in driven.values()) for k in KERNELS}
+    return {
+        "init_s": init_s, "config": {"head_type": "esm3"},
+        "gibbs": {"num_steps": GIBBS_STEPS, "temperature": GIBBS_TEMPERATURE,
+                  "top_p": GIBBS_TOP_P,
+                  "targets": numbers(g_driven, lambda key, r: len(plan(key))
+                                     * GIBBS_STEPS)},
+        "eb": {"entropy_budget": 1.0, "max_steps": 8 * EB_NUM_STEPS,
+               "temperature": GIBBS_TEMPERATURE, "top_p": GIBBS_TOP_P,
+               "targets": numbers(e_driven,
+                                  lambda key, r: sum(r["eb_steps"]))},
+        "launches": launches,
+        "trunk_logits_rel_l2_kernel_vs_plain": rel,
+        "trunk_logits_rel_l2_plain_roundings": floor,
+        "anatomy_1jm4_B": anatomy}, launches
+
+
 def serve_path(torch, runtime, ops, card, gen):
     """Phase 5 (module docstring).  Returns (numbers, launches)."""
     import numpy as np
@@ -593,8 +791,8 @@ def serve_path(torch, runtime, ops, card, gen):
 
     fa = ops["flash_attention"]
     t0 = time.time()
-    args = server.get_argparser().parse_args(["--quant", "int8", "--seed",
-                                              "0"])
+    args = server.get_argparser().parse_args(["--quant", "int8", "--mode",
+                                              "ddpm", "--seed", "0"])
     rt = cli.build_runtime(args)       # as the server's main builds it
     torch.cuda.synchronize()
     init_s = time.time() - t0
@@ -743,6 +941,56 @@ def serve_path(torch, runtime, ops, card, gen):
             raise AssertionError(f"coalesced group: {group_launches} flash "
                                  f"launches, expected {want_group}")
 
+        # the same three buckets as a coalesced gibbs group (per-bucket
+        # sub-groups; pack 1 -> flash), then one eb request of 120
+        # residues (bucket 128, pack 1) with its PDB
+        want_gibbs = sum(
+            n_layers * GIBBS_STEPS * sum(
+                pack_factor(b, bucket_length(n)) == 1
+                for b in plan_batches(n, n_each, max_batch=args.max_batch))
+            for n in lws)
+        fa_before = fa.launches
+        t0 = time.time()
+        replies = coalesced_posts(url + "/sample", service, [
+            {"sequence": residues(n), "num_samples": n_each, "mode": "gibbs",
+             "num_steps": GIBBS_STEPS, "seed": i, "format": "tokens"}
+            for i, n in enumerate(lens)])
+        gibbs_group_s = time.time() - t0
+        gibbs_group_launches = fa.launches - fa_before
+        for n, (status, body) in zip(lens, replies):
+            toks = np.asarray(body.get("tokens", []))
+            if (status != 200 or body.get("coalesced") != 3
+                    or toks.shape != (n_each, n) or not (toks < 4096).all()):
+                raise AssertionError(f"coalesced gibbs request of {n}: "
+                                     f"{status}, coalesced "
+                                     f"{body.get('coalesced')}, tokens "
+                                     f"{toks.shape}")
+        if gibbs_group_launches != want_gibbs:
+            raise AssertionError(f"coalesced gibbs group: "
+                                 f"{gibbs_group_launches} flash launches, "
+                                 f"expected {want_gibbs}")
+        eb_len = 120
+        fa_before = fa.launches
+        t0 = time.time()
+        status, eb_reply = post(url + "/sample", {
+            "sequence": residues(eb_len), "num_samples": n_each,
+            "mode": "eb", "seed": 0, "format": "pdb"})
+        eb_s = time.time() - t0
+        eb_launches = fa.launches - fa_before
+        if status != 200:
+            raise AssertionError(f"/sample eb: {status} {eb_reply}")
+        check_pdb(eb_reply["pdb"], n_each, n_each * (eb_len * 4 - 1),
+                  "/sample eb")
+        eb_plan = plan_batches(eb_len + 2, n_each, max_batch=args.max_batch)
+        want_eb = n_layers * sum(
+            s for b, s in zip(eb_plan, sampler.eb_steps)
+            if pack_factor(b, bucket_length(eb_len + 2)) == 1) \
+            + rt.decoder.cfg.n_layers * -(-n_each // DECODE_BATCH)
+        if eb_launches != want_eb or len(sampler.eb_steps) != len(eb_plan):
+            raise AssertionError(f"eb request: {eb_launches} flash launches "
+                                 f"over steps {sampler.eb_steps}, expected "
+                                 f"{want_eb}")
+
         status, bad = post(url + "/sample", {"sequence": "X1",
                                              "mode": "ddpm"})
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
@@ -793,6 +1041,16 @@ def serve_path(torch, runtime, ops, card, gen):
                             "route": route[0], "route_costs": route[1:],
                             "s": group_s,
                             "flash_attention_launches": group_launches},
+        "coalesced_gibbs_group": {
+            "lengths": lens, "samples_each": n_each,
+            "num_steps": GIBBS_STEPS, "s": gibbs_group_s,
+            "flash_attention_launches": gibbs_group_launches},
+        "eb_request": {"length": eb_len, "samples": n_each,
+                       "plan": eb_plan, "eb_steps": list(sampler.eb_steps),
+                       "s": eb_s, "sampling_s": eb_reply["sampling_sec"],
+                       "ms_per_step": 1e3 * eb_reply["sampling_sec"]
+                       / sum(sampler.eb_steps),
+                       "flash_attention_launches": eb_launches},
         "bpti_ms_per_step": by_pack, "draws_per_step_b64": noise_ms,
         "int8_trunk_ms_per_step_8192_tokens": {
             T: {"rows": 8192 // T, "ms_per_step": ms,
@@ -978,15 +1236,21 @@ def main() -> int:
         "trunk_logits_rel_l2_kernel_vs_plain": f_rel,
         "trunk_logits_rel_l2_plain_roundings": f_floor}), flush=True)
 
-    # 5. the serve path: the int8 runtime behind the port's HTTP server
+    # 5. the gibbs path: the stock-head trunk through the CLI, gibbs and eb
+    g_numbers, g_launches = gibbs_path(torch, runtime, ops, target_dirs, lws,
+                                       gen)
+    print("[gibbs path] " + json.dumps({"card": card, **g_numbers}),
+          flush=True)
+
+    # 6. the serve path: the int8 runtime behind the port's HTTP server
     s_numbers, s_launches = serve_path(torch, runtime, ops, card, gen)
     print("[serve path] " + json.dumps(s_numbers), flush=True)
 
-    # 6. the kernels line (headline shape: the trunk's), the device line;
+    # 7. the kernels line (headline shape: the trunk's), the device line;
     # launches from the path that runs the kernel, fused_ffn's from its
     # phase (no model path runs it)
     by_path = {"default path": launches, "fused path": f_launches,
-               "serve path": s_launches}
+               "gibbs path": g_launches, "serve path": s_launches}
     launches_from = {"flash_attention": "default path",
                      "small_attention": "fused path",
                      "fused_qkv": "fused path"}

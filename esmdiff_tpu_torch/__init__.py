@@ -1,9 +1,10 @@
 """esmdiff_tpu_torch — the PyTorch/CUDA port of esmdiff_tpu for NVIDIA Hopper.
 
 A second package beside ``esmdiff_tpu`` (the JAX reference, which it never
-imports).  It runs the ESMDiff ``ddpm`` sampling path end to end:
-sequence -> ESM3 trunk (25-step masked-diffusion sampler) -> VQ-VAE decoder
--> multi-MODEL PDB.  Each Pallas kernel of the JAX package has a
+imports).  It runs the sampling paths end to end: sequence -> ESM3 trunk
+(the ``ddpm`` masked-diffusion sampler, or ``gibbs``/``eb`` unmasking on
+the stock head) -> VQ-VAE decoder -> multi-MODEL PDB, from the CLI or the
+HTTP server.  Each Pallas kernel of the JAX package has a
 hand-written CUDA counterpart (``ops/*.py`` over ``csrc/*.cu``, built by
 ``ops/_build.py``): flash attention on the default path, fused LN + QKV +
 QK-LN and rotary-fused attention in the trunk's ``qkv_backend="fused"``,

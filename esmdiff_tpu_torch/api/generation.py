@@ -1,15 +1,17 @@
-"""Ensemble generation engine, ddpm subset (port of
-``esmdiff_tpu/api/generation.py``): the memory-aware batch planner, length
-buckets, per-row seeding, sequence packing of short buckets, the ddpm
-engines (solo, same-bucket coalesced, cross-length packed, and the
-cost-routed mixed one that picks between the last two) and the batched VQ
-decode, also coalesced across requests.
+"""Ensemble generation engine (port of ``esmdiff_tpu/api/generation.py``):
+the memory-aware batch planner, length buckets, per-row seeding, sequence
+packing of short buckets, the ddpm engines (solo, same-bucket coalesced,
+cross-length packed, and the cost-routed mixed one that picks between the
+last two), the gibbs engines (solo, coalesced, and mixed as per-bucket
+sub-groups), the eb engine, and the batched VQ decode, also coalesced
+across requests.
 
 A sample's draws depend only on (its request's seed, its index in the
 request): a noise factory builds them for a row of the sample's own length
 bucket, and the packed engine places each sample's draws where its segment
 lies (``SegmentNoise``), so a sample draws the same solo, coalesced or
-packed.
+packed.  The gibbs and eb samplers take their uniforms from a second
+factory of the same form (``uniform_factory``).
 """
 
 from __future__ import annotations
@@ -22,10 +24,17 @@ import torch
 
 from esmdiff_tpu_torch.core import constants as C
 from esmdiff_tpu_torch.core.tokenizer import StructureTokenizer
+from esmdiff_tpu_torch.diffusion.gibbs import (RowGeneratorUniform,
+                                               UniformSource,
+                                               entropy_bounded_unmask_sample,
+                                               iterative_unmask_sample)
 from esmdiff_tpu_torch.diffusion.mdlm import (MDLM, MDLMConfig, NoiseSource,
-                                              RowGeneratorNoise)
+                                              RowGeneratorNoise,
+                                              shield_special_tokens)
 from esmdiff_tpu_torch.diffusion.noise import LogLinearNoise, Noise
 from esmdiff_tpu_torch.ops.packing import (PACK_TARGET_LEN, pack_factor,
+                                           packed_positions,
+                                           packed_segment_ids,
                                            plan_segment_rows)
 from .protein_api import ESM3Runtime, ESMProtein
 
@@ -34,6 +43,8 @@ N_MAX_RESIDUE_SQUARE = 200 * 200 * 105
 
 # (rows (B, 2) of (request seed, sample index), L, V, device) -> draws
 NoiseFactory = Callable[[np.ndarray, int, int, torch.device], NoiseSource]
+UniformFactory = Callable[[np.ndarray, int, int, torch.device],
+                          UniformSource]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +117,13 @@ def generator_noise(rows: np.ndarray, length: int, vocab: int,
     return RowGeneratorNoise(request_row_seeds(rows), length, vocab, device)
 
 
+def generator_uniforms(rows: np.ndarray, length: int, vocab: int,
+                       device) -> UniformSource:
+    """The default uniform factory of the gibbs and eb samplers:
+    ``RowGeneratorUniform`` seeded per row."""
+    return RowGeneratorUniform(request_row_seeds(rows), length, vocab, device)
+
+
 class SegmentNoise:
     """The draws of a packed (R, T) layout: each segment (one sample)
     gets exactly the draws of its solo run.  Segments are grouped by their
@@ -148,23 +166,29 @@ class SegmentNoise:
 
 
 class EnsembleSampler:
-    """Runs ddpm (fine-tuned MDLM) ensemble generation over an
+    """Runs ddpm (fine-tuned MDLM), gibbs (iterative unmasking) or eb
+    (entropy-bounded unmasking) ensemble generation over an
     :class:`ESM3Runtime`."""
 
     def __init__(self, runtime: ESM3Runtime, noise: Optional[Noise] = None,
                  mdlm_cfg: MDLMConfig = MDLMConfig(),
                  plan_policy: str = "ladder",
-                 noise_factory: NoiseFactory = generator_noise):
-        """noise_factory: builds each batch's noise source from its rows'
-        (request seed, sample index) pairs — the default draws from one
+                 noise_factory: NoiseFactory = generator_noise,
+                 uniform_factory: UniformFactory = generator_uniforms):
+        """noise_factory: builds each ddpm batch's noise source from its
+        rows' (request seed, sample index) pairs; uniform_factory does the
+        same for the gibbs and eb samplers.  The defaults draw from one
         ``torch.Generator`` per row; tests inject JAX's draws here."""
         self.runtime = runtime
         self.plan_policy = plan_policy
         self.noise = noise or LogLinearNoise()
         self.mdlm_cfg = mdlm_cfg
         self.noise_factory = noise_factory
+        self.uniform_factory = uniform_factory
         self.mdlm = MDLM(runtime.trunk, runtime.sigma_embedder,
                          noise=self.noise, cfg=mdlm_cfg)
+        # the step count of each batch of the last eb_ensemble call
+        self.eb_steps: list[int] = []
 
     # -- shared helpers -------------------------------------------------------
     def _padded_tokens(self, sequence: str, pad_to: Optional[int]):
@@ -192,6 +216,26 @@ class EnsembleSampler:
         seq_rows = np.concatenate(
             [np.tile(p[None], (c, 1)) for p, c in zip(padded, counts)])
         return seq_rows, lws, Lpad
+
+    def _request_rows(self, sequences: Sequence[str], counts: Sequence[int],
+                     seeds: Sequence[int]):
+        """Every sample row of a same-bucket group of requests: sequence
+        (``_multi_rows``), initial structure tokens (MASK on every valid
+        position, PAD past it), decode mask (the interior) and (request
+        seed, sample index); and each request's length with specials."""
+        seq_rows, lws, Lpad = self._multi_rows(sequences, counts)
+        N = seq_rows.shape[0]
+        id_rows = np.concatenate([
+            np.stack([np.full(c, s), np.arange(c)], axis=1)
+            for s, c in zip(seeds, counts)])
+        init_rows = np.full((N, Lpad), C.STRUCTURE_PAD_TOKEN, dtype=np.int64)
+        dmask_rows = np.zeros((N, Lpad), dtype=bool)
+        r = 0
+        for lw, c in zip(lws, counts):
+            init_rows[r:r + c, :lw] = C.STRUCTURE_MASK_TOKEN
+            dmask_rows[r:r + c, 1:lw - 1] = True
+            r += c
+        return seq_rows, init_rows, dmask_rows, id_rows, lws
 
     @staticmethod
     def _split_rows(all_tokens: np.ndarray, lws: Sequence[int],
@@ -236,27 +280,37 @@ class EnsembleSampler:
 
         seeds: one seed PER REQUEST (default ``seed + i``); a row's draws are
         a function of (its request's seed, its sample index) only."""
-        seq_rows, lws, Lpad = self._multi_rows(sequences, counts)
-        N = seq_rows.shape[0]
         if seeds is None:
             seeds = [seed + i for i in range(len(sequences))]
-        id_rows = np.concatenate([
-            np.stack([np.full(c, s), np.arange(c)], axis=1)
-            for s, c in zip(seeds, counts)])
-        prior_rows = np.full((N, Lpad), C.STRUCTURE_PAD_TOKEN, dtype=np.int64)
-        r = 0
-        for lw, c in zip(lws, counts):
-            prior_rows[r:r + c, :lw] = C.STRUCTURE_MASK_TOKEN
-            r += c
-
+        seq_rows, prior_rows, _, id_rows, lws = self._request_rows(
+            sequences, counts, seeds)
+        Lpad = seq_rows.shape[1]
         dev = self.runtime.device
-        sizes = plan_batches(max(lws), N, budget, max_batch,
-                             policy=self.plan_policy)
+
+        def run(idx, seq_b, lengths, pack):
+            return self.mdlm.ddpm_sample(
+                seq_b, self.noise_factory(id_rows[idx], Lpad,
+                                          self.mdlm_cfg.vocab_size, dev),
+                num_steps=num_steps, eps=eps,
+                input_prior=torch.as_tensor(prior_rows[idx], device=dev),
+                sample_max_t=sample_max_t, lengths=lengths, pack=pack)
+
+        toks = self._run_batches(seq_rows, max(lws), budget, max_batch, run)
+        return self._split_rows(toks, lws, counts)
+
+    def _run_batches(self, seq_rows: np.ndarray, length_with_specials: int,
+                     budget: int, max_batch: Optional[int], run):
+        """Plan the (N, Lpad) rows into batches (``plan_batches``) and run
+        each through ``run(idx, seq_b, lengths, pack)`` -> (B, Lpad)
+        tokens, where idx are the batch's row indices; returns the N rows'
+        tokens.  The plan's final round-up batch may exceed the remaining
+        rows: its surplus rows re-sample the last row and are trimmed."""
+        N, Lpad = seq_rows.shape
+        dev = self.runtime.device
         outs = []
         start = 0
-        for B in sizes:
-            # the plan's final round-up batch may exceed the remaining rows:
-            # surplus rows re-sample the last row and are trimmed below
+        for B in plan_batches(length_with_specials, N, budget, max_batch,
+                              policy=self.plan_policy):
             idx = np.minimum(np.arange(start, start + B), N - 1)
             seq_b = torch.as_tensor(seq_rows[idx], dtype=torch.long,
                                     device=dev)
@@ -264,16 +318,10 @@ class EnsembleSampler:
             # describe the mask (the kernel path)
             lengths = (seq_b != C.SEQUENCE_PAD_TOKEN).sum(
                 dim=-1, dtype=torch.int32)
-            toks = self.mdlm.ddpm_sample(
-                seq_b, self.noise_factory(id_rows[idx], Lpad,
-                                          self.mdlm_cfg.vocab_size, dev),
-                num_steps=num_steps, eps=eps,
-                input_prior=torch.as_tensor(prior_rows[idx], device=dev),
-                sample_max_t=sample_max_t, lengths=lengths,
-                pack=self._pack(B, Lpad))
+            toks = run(idx, seq_b, lengths, self._pack(B, Lpad))
             outs.append(toks.cpu().numpy().astype(np.int32))
             start += B
-        return self._split_rows(np.concatenate(outs, axis=0), lws, counts)
+        return np.concatenate(outs, axis=0)[:N]
 
     @staticmethod
     def _pack(B: int, L: int) -> int:
@@ -424,6 +472,151 @@ class EnsembleSampler:
             res.append(np.stack(out_per_seg[k:k + c]))
             k += c
         return res
+
+    # -- gibbs and eb ---------------------------------------------------------
+    def _trunk_forward(self, pack: int = 1):
+        """(tokens, seq_tokens, lengths) -> float32 raw structure logits
+        (B, L, V), the specials shielded unless the head is the stock
+        4096-way one, optionally through the sequence-packed view (the
+        caller keeps (B, L)).  No mask-token shield: on the stock head the
+        mask token lies past V, so gibbs and eb do not go through
+        ``MDLM.forward_logits``."""
+        trunk = self.runtime.trunk
+        stock_head = trunk.cfg.head_type == "esm3"
+
+        def forward(tokens, seq_tokens, lengths):
+            B, L = tokens.shape
+            if pack > 1:
+                out = trunk(
+                    structure_tokens=tokens.reshape(B // pack, pack * L),
+                    sequence_tokens=seq_tokens.reshape(B // pack, pack * L),
+                    sequence_id=packed_segment_ids(lengths, L, pack),
+                    positions=packed_positions(L, pack,
+                                               device=tokens.device))
+            else:
+                out = trunk(structure_tokens=tokens,
+                            sequence_tokens=seq_tokens, lengths=lengths)
+            # the head's float32 output is fresh: shield it in place
+            logits = out.structure_logits.float().reshape(B, L, -1)
+            if not stock_head:
+                shield_special_tokens(logits)
+            return logits
+
+        return forward
+
+    def _unmask(self, sequences: Sequence[str], counts: Sequence[int],
+                seeds: Sequence[int], budget: int, max_batch: Optional[int],
+                sample) -> list[np.ndarray]:
+        """An unmasking sampler, ``sample(forward, uniforms, init,
+        dmask)``, over a same-bucket group of requests, batch by batch
+        through ``_trunk_forward``: one (counts[i], L_i) interior-token
+        array per request."""
+        seq_rows, init_rows, dmask_rows, id_rows, lws = self._request_rows(
+            sequences, counts, seeds)
+        Lpad = seq_rows.shape[1]
+        dev = self.runtime.device
+
+        def run(idx, seq_b, lengths, pack):
+            forward = self._trunk_forward(pack)
+            return sample(
+                lambda tokens: forward(tokens, seq_b, lengths),
+                self.uniform_factory(id_rows[idx], Lpad,
+                                     self._logits_width(), dev),
+                torch.as_tensor(init_rows[idx], device=dev),
+                torch.as_tensor(dmask_rows[idx], device=dev))
+
+        toks = self._run_batches(seq_rows, max(lws), budget, max_batch, run)
+        return self._split_rows(toks, lws, counts)
+
+    def _logits_width(self) -> int:
+        cfg = self.runtime.trunk.cfg
+        return (C.VQVAE_CODEBOOK_SIZE if cfg.head_type == "esm3"
+                else cfg.n_structure_heads)
+
+    def gibbs_ensemble(self, sequence: str, num_samples: int,
+                       config: GenerationConfig = GenerationConfig(),
+                       seed: int = 0,
+                       coordinates: Optional[np.ndarray] = None,
+                       mask_ids: Optional[Sequence[int]] = None,
+                       budget: int = N_MAX_RESIDUE_SQUARE,
+                       max_batch: Optional[int] = None) -> np.ndarray:
+        """Iterative confidence-ranked unmasking with the (pretrained)
+        trunk: (num_samples, L) int32 structure tokens, BOS/EOS stripped."""
+        if mask_ids is not None or coordinates is not None:
+            raise NotImplementedError(
+                "gibbs inpainting (a coordinate prior) needs the structure "
+                "encoder, which is not ported yet")
+        return self.gibbs_ensemble_multi(
+            [sequence], [num_samples], config=config, seed=seed,
+            budget=budget, max_batch=max_batch)[0]
+
+    def gibbs_ensemble_multi(self, sequences: Sequence[str],
+                             counts: Sequence[int],
+                             config: GenerationConfig = GenerationConfig(),
+                             seed: int = 0,
+                             budget: int = N_MAX_RESIDUE_SQUARE,
+                             max_batch: Optional[int] = None,
+                             seeds: Optional[Sequence[int]] = None,
+                             ) -> list[np.ndarray]:
+        """Coalesced gibbs generation: same-bucket requests share one batch
+        plan.  Returns one (counts[i], L_i) interior-token array per
+        request.  seeds: one seed PER REQUEST (default ``seed + i``)."""
+        if seeds is None:
+            seeds = [seed + i for i in range(len(sequences))]
+
+        def sample(fwd, uniforms, init, dmask):
+            return iterative_unmask_sample(
+                fwd, uniforms, init, dmask, num_steps=config.num_steps,
+                temperature=config.temperature, top_p=config.top_p)
+
+        return self._unmask(sequences, counts, seeds, budget, max_batch,
+                            sample)
+
+    def gibbs_ensemble_mixed(self, sequences: Sequence[str],
+                             counts: Sequence[int],
+                             config: GenerationConfig = GenerationConfig(),
+                             seeds: Optional[Sequence[int]] = None,
+                             max_batch: Optional[int] = None,
+                             budget: int = N_MAX_RESIDUE_SQUARE,
+                             ) -> list[np.ndarray]:
+        """A gibbs group spanning length buckets: each bucket's sub-group
+        through :meth:`gibbs_ensemble_multi` (no cross-length packed route:
+        the unmasking quotas are per row)."""
+        if seeds is None:
+            seeds = list(range(len(sequences)))
+        results: list = [None] * len(sequences)
+        by_bucket: dict[int, list[int]] = {}
+        for i, s in enumerate(sequences):
+            lw = len(self.runtime.seq_tokenizer.encode(s))
+            by_bucket.setdefault(bucket_length(lw), []).append(i)
+        for _, idxs in sorted(by_bucket.items()):
+            outs = self.gibbs_ensemble_multi(
+                [sequences[i] for i in idxs], [counts[i] for i in idxs],
+                config=config, seeds=[seeds[i] for i in idxs],
+                max_batch=max_batch, budget=budget)
+            for i, o in zip(idxs, outs):
+                results[i] = o
+        return results
+
+    def eb_ensemble(self, sequence: str, num_samples: int,
+                    entropy_budget: float = 1.0, temperature: float = 1.0,
+                    top_p: float = 1.0, max_steps: int = 64, seed: int = 0,
+                    budget: int = N_MAX_RESIDUE_SQUARE,
+                    max_batch: Optional[int] = None) -> np.ndarray:
+        """Adaptive-step unmasking (``entropy_bounded_unmask_sample``):
+        (num_samples, L) interior tokens.  Each batch's step count is kept
+        in ``self.eb_steps``."""
+        self.eb_steps = []
+
+        def sample(fwd, uniforms, init, dmask):
+            toks, steps = entropy_bounded_unmask_sample(
+                fwd, uniforms, init, dmask, entropy_budget=entropy_budget,
+                temperature=temperature, top_p=top_p, max_steps=max_steps)
+            self.eb_steps.append(steps)
+            return toks
+
+        return self._unmask([sequence], [num_samples], [seed], budget,
+                            max_batch, sample)[0]
 
     # -- decode to proteins ---------------------------------------------------
     def decode_ensemble(self, sequence: str, tokens: np.ndarray,

@@ -1,14 +1,21 @@
-"""Conformation-ensemble sampling CLI on the port (``--mode ddpm``).
+"""Conformation-ensemble sampling CLI on the port.
 
 Port of ``esmdiff_tpu/cli/sample.py``: per-target PDB in a directory -> N
 sampled conformations -> one multi-MODEL PDB per target, plus
-``timings.json``.  Same flags, plus ``--device`` (default ``cuda``);
-``--quant int8`` runs the trunk's projections in W8A8 int8.  The gibbs and
-eb modes, checkpoints, inpainting, refinement, profiling and data
-parallelism are not ported yet and raise.
+``timings.json``.  Same flags, plus ``--device`` (default ``cuda``).
+
+Modes (``--mode``, default gibbs as in JAX):
+  gibbs — iterative confidence-ranked unmasking with the stock-head trunk
+  ddpm  — fine-tuned ESMDiff ancestral masked-diffusion sampling
+  eb    — entropy-bounded unmasking, at most ``8 * --num_steps`` steps
+
+``--quant int8`` runs the trunk's projections in W8A8 int8; ``--refine``
+projects each decoded CA trace into the bond/clash validity band.
+Checkpoints, inpainting, profiling and data parallelism are not ported yet
+and raise.
 
     python -m esmdiff_tpu_torch.cli.sample --input data/targets/bpti \\
-        --output output/torch --mode ddpm --num_steps 25 --num_samples 100
+        --output output/torch --mode gibbs --num_steps 16 --num_samples 100
 """
 
 from __future__ import annotations
@@ -20,11 +27,14 @@ from pathlib import Path
 
 import torch
 
-from esmdiff_tpu_torch.api.generation import EnsembleSampler
+import numpy as np
+
+from esmdiff_tpu_torch.api.generation import EnsembleSampler, GenerationConfig
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
 from esmdiff_tpu_torch.core import protein as protein_io
 from esmdiff_tpu_torch.models.esm3 import ESM3Config, esm3_tiny
 from esmdiff_tpu_torch.models.vqvae import DecoderConfig
+from esmdiff_tpu_torch.ops.refine import refine_ca_ensemble
 
 
 def _not_ported(what: str):
@@ -33,18 +43,20 @@ def _not_ported(what: str):
 
 def build_runtime(args) -> ESM3Runtime:
     """Random weights at ``--model_scale``, the trunk quantized from its
-    float32 weights with ``--quant int8``."""
+    float32 weights with ``--quant int8``: the fine-tune structure head for
+    ddpm, the stock multi-track head for gibbs and eb."""
     if args.ckpt or args.vqvae_ckpt:
         _not_ported("checkpoint loading (--ckpt/--vqvae_ckpt)")
     print("[warning] no --ckpt given: sampling with RANDOM weights "
           "(throughput/dev runs only — outputs are not physical ensembles)")
+    head = "structure" if args.mode == "ddpm" else "esm3"
     if args.model_scale == "full":
         return ESM3Runtime.random_init(
-            seed=args.seed, trunk_cfg=ESM3Config(head_type="structure"),
+            seed=args.seed, trunk_cfg=ESM3Config(head_type=head),
             device=args.device, quant=args.quant)
     return ESM3Runtime.random_init(
         seed=args.seed,
-        trunk_cfg=esm3_tiny(head_type="structure", dtype="float32"),
+        trunk_cfg=esm3_tiny(head_type=head, dtype="float32"),
         decoder_cfg=DecoderConfig(d_model=64, n_heads=2, n_layers=2,
                                   dtype="float32"),
         device=args.device, quant=args.quant)
@@ -59,10 +71,11 @@ def get_argparser():
     p.add_argument("--ckpt", type=str, default=None)
     p.add_argument("--vqvae_ckpt", type=str, default=None)
     p.add_argument("--output", type=str, default="output/inference_esmdiff")
-    p.add_argument("--mode", type=str, default="ddpm",
+    p.add_argument("--mode", type=str, default="gibbs",
                    choices=["gibbs", "ddpm", "eb"],
-                   help="ddpm = fine-tuned masked-diffusion (the only mode "
-                        "ported so far, hence the default).")
+                   help="gibbs = cosine-schedule iterative unmasking; "
+                        "ddpm = fine-tuned masked-diffusion; eb = adaptive "
+                        "entropy-bounded unmasking.")
     p.add_argument("--num_steps", type=int, default=25)
     p.add_argument("--num_samples", type=int, default=10)
     p.add_argument("--mask_ids", type=str, default=None)
@@ -83,7 +96,10 @@ def get_argparser():
     p.add_argument("--profile", type=str, default=None)
     p.add_argument("--skip_existing", action="store_true",
                    help="Skip targets whose output PDB already exists.")
-    p.add_argument("--refine", action="store_true")
+    p.add_argument("--refine", action="store_true",
+                   help="Project each decoded CA trace into the bond/clash "
+                        "validity band (ops/refine.py), shifting every "
+                        "residue's atoms rigidly with its CA.")
     p.add_argument("--plan", type=str, default="single",
                    choices=["single", "ladder"],
                    help="Batch planning: 'single' = one batch size per "
@@ -101,11 +117,8 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
     quantized, which raises on matmul weights held in bf16: build such a
     runtime with ``build_runtime`` or ``random_init(quant="int8")``."""
     args = get_argparser().parse_args(argv)
-    if args.mode != "ddpm":
-        _not_ported(f"--mode {args.mode}")
     for flag, on in (("--mask_ids/--filled_ids",
                       bool(args.mask_ids or args.filled_ids)),
-                     ("--refine", args.refine),
                      ("--profile", bool(args.profile)),
                      ("--data_parallel", args.data_parallel)):
         if on:
@@ -147,11 +160,27 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
         seq = ESMProtein.from_pdb(path).sequence
         _sync(runtime.device)
         t0 = time.time()
-        tokens = sampler.ddpm_ensemble(
-            seq, args.num_samples, num_steps=args.num_steps, seed=args.seed,
-            max_batch=args.max_batch)
+        if args.mode == "eb":
+            tokens = sampler.eb_ensemble(
+                seq, args.num_samples, entropy_budget=args.entropy_budget,
+                temperature=args.temperature, top_p=args.top_p,
+                max_steps=args.num_steps * 8, seed=args.seed,
+                max_batch=args.max_batch)
+        elif args.mode == "gibbs":
+            tokens = sampler.gibbs_ensemble(
+                seq, args.num_samples,
+                config=GenerationConfig(num_steps=args.num_steps,
+                                        temperature=args.temperature,
+                                        top_p=args.top_p),
+                seed=args.seed, max_batch=args.max_batch)
+        else:
+            tokens = sampler.ddpm_ensemble(
+                seq, args.num_samples, num_steps=args.num_steps,
+                seed=args.seed, max_batch=args.max_batch)
         t_tokens = time.time() - t0
         prots = sampler.decode_ensemble(seq, tokens)
+        if args.refine:
+            refine_in_place(prots, runtime.device)
         t_total = time.time() - t0
         protein_io.ensemble_to_pdb_file(
             [p.to_protein() for p in prots], out_file)
@@ -160,13 +189,26 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
               f"total {t_total:.2f}s -> {out_file}")
         report.append({
             "target": path.stem, "key": key, "L": len(seq),
-            "num_samples": args.num_samples,
+            "mode": args.mode, "num_samples": args.num_samples,
             "sampling_sec": t_tokens, "total_sec": t_total,
+            **({"eb_steps": list(sampler.eb_steps)} if args.mode == "eb"
+               else {}),
         })
     prior.update({r["key"]: r for r in report})
     timings_path.write_text(
         json.dumps(sorted(prior.values(), key=lambda r: r["key"]), indent=2))
     return report
+
+
+def refine_in_place(prots: list[ESMProtein], device) -> None:
+    """Project each conformation's CA trace into the validity band
+    (ops/refine.py) and translate every residue's atoms rigidly by its CA
+    displacement."""
+    ca = np.stack([p.coordinates[:, 1] for p in prots])
+    shift = np.nan_to_num(refine_ca_ensemble(ca, device=device) - ca,
+                          nan=0.0)
+    for p, s in zip(prots, shift):
+        p.coordinates += s[:, None, :]
 
 
 def _sync(device):

@@ -1,32 +1,38 @@
-"""Warm conformation-sampling server on the port (``--mode ddpm``).
+"""Warm conformation-sampling server on the port.
 
-Port of ``esmdiff_tpu/cli/serve.py``, ddpm only: the model loads once per
-process and stays on the card across requests.
+Port of ``esmdiff_tpu/cli/serve.py``: the model loads once per process and
+stays on the card across requests.
 
 Endpoints (JSON over HTTP, stdlib only):
 
   GET  /healthz  -> {"ok": true, "device": ..., "card": ..., ...}
-  POST /sample   <- {"sequence": str, "num_samples": int, "mode": "ddpm",
-                     "num_steps": int, "seed": int, "pdb": str (a
-                     sequence source), "format": "pdb"|"tokens"}
+  POST /sample   <- {"sequence": str, "num_samples": int,
+                     "mode": "gibbs"|"ddpm"|"eb" (default gibbs),
+                     "num_steps": int (ddpm 25, else 16), "temperature":
+                     float, "top_p": float, "entropy_budget": float (eb),
+                     "seed": int, "pdb": str (a sequence source),
+                     "format": "pdb"|"tokens"}
                  -> {"pdb": str} | {"tokens": [[int], ...]}, plus timings
-  POST /warmup   <- {"lengths": [int], "num_samples": int, "mode": "ddpm",
+  POST /warmup   <- {"lengths": [int], "num_samples": int, "mode": str,
                      "num_steps": int, "packed_lengths": [int]}
                  -> seconds per warmed length (the first request at a shape
                     pays cuBLAS set-up and allocator growth)
 
-The gibbs and eb modes and inpainting (``mask_ids`` with a ``pdb`` prior,
-which needs the structure encoder) are not ported yet: a 400 says so.
+Inpainting (``mask_ids`` with a ``pdb`` prior, which needs the structure
+encoder) is not ported yet: a 400 says so.
 
 Device work is serialized per phase by two locks (trunk sampling, VQ
 decode), so request B's sampling can run behind request A's decode.
-Concurrent requests with the same (mode, num_steps, temperature, top_p)
-and no prior coalesce into one group while they queue behind in-flight
-device work: a group within one length bucket runs one merged batch plan,
-a group across buckets is cost-routed between per-bucket batches and one
-cross-length packed program (``EnsembleSampler.ddpm_ensemble_mixed``).  A
-sample's draws depend only on its request's seed and its index, so a
-request's tokens do not depend on its co-batched traffic.
+Concurrent gibbs or ddpm requests with the same (mode, num_steps,
+temperature, top_p) and no prior coalesce into one group while they queue
+behind in-flight device work: a ddpm group within one length bucket runs
+one merged batch plan, a ddpm group across buckets is cost-routed between
+per-bucket batches and one cross-length packed program
+(``EnsembleSampler.ddpm_ensemble_mixed``); a gibbs group runs per-bucket
+sub-groups (``gibbs_ensemble_mixed``).  eb requests run alone (their step
+count is per batch).  A sample's draws depend only on its request's seed
+and its index, so a request's tokens do not depend on its co-batched
+traffic.
 
     python -m esmdiff_tpu_torch.cli.serve --quant int8 --mode ddpm
 """
@@ -43,7 +49,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from esmdiff_tpu_torch.api.generation import EnsembleSampler, bucket_length
+from esmdiff_tpu_torch.api.generation import (EnsembleSampler,
+                                              GenerationConfig, bucket_length)
 from esmdiff_tpu_torch.api.protein_api import ESMProtein
 from esmdiff_tpu_torch.core import protein as protein_io
 from esmdiff_tpu_torch.core.tokenizer import SequenceTokenizer
@@ -54,7 +61,6 @@ class RequestError(ValueError):
 
 
 _VALID_MODES = ("gibbs", "ddpm", "eb")
-_PORTED_MODES = ("ddpm",)
 _MAX_SEQ_LEN = 2048
 
 
@@ -122,7 +128,8 @@ class SamplerService:
     def sample(self, req: dict) -> dict:
         p = self._parse(req)
         t0 = time.time()
-        if self._coalesce and p["prior_prot"] is None:
+        if (self._coalesce and p["prior_prot"] is None
+                and p["mode"] != "eb"):
             tokens, prots, t_tokens, gsize = self._run_coalesced(p)
         else:
             tokens, prots, t_tokens = self._run_single(p)
@@ -151,8 +158,8 @@ class SamplerService:
         return out
 
     def _parse(self, req: dict) -> dict:
-        """The JAX server's checks, in its order; then what the port does
-        not run yet (gibbs, eb, inpainting) is a RequestError too."""
+        """The JAX server's checks, in its order; then inpainting, which
+        the port does not run yet, is a RequestError too."""
         seq = req.get("sequence")
         prior_prot = None
         if req.get("pdb"):
@@ -167,22 +174,21 @@ class SamplerService:
         if bad_chars:
             raise RequestError(
                 f"invalid residue characters: {sorted(bad_chars)}")
-        mode = req.get("mode", "ddpm")
+        mode = req.get("mode", "gibbs")
         if mode not in _VALID_MODES:
             raise RequestError(f"mode must be one of {_VALID_MODES}")
-        if mode not in _PORTED_MODES:
-            raise RequestError(f"mode {mode!r} is not ported yet: this "
-                               f"server runs {_PORTED_MODES}")
         rt = self.sampler.runtime
-        if rt.trunk.cfg.head_type != "structure" or rt.sigma_embedder is None:
+        if mode == "ddpm" and (rt.trunk.cfg.head_type != "structure"
+                               or rt.sigma_embedder is None):
             raise RequestError(
                 "this server's model cannot run ddpm (it was loaded with the "
-                "stock esm3 head / no sigma embedder)")
+                "stock esm3 head / no sigma embedder — start with a "
+                "fine-tuned --ckpt or --mode ddpm to serve ddpm)")
         n = int(req.get("num_samples", 10))
         if not 1 <= n <= self.max_samples:
             raise RequestError(f"num_samples must be in [1, "
                                f"{self.max_samples}]")
-        steps = int(req.get("num_steps", 25))
+        steps = int(req.get("num_steps", 25 if mode == "ddpm" else 16))
         seed = int(req.get("seed", 0))
         temperature = float(req.get("temperature", 1.4))
         top_p = float(req.get("top_p", 0.9))
@@ -191,6 +197,9 @@ class SamplerService:
         if fmt not in ("pdb", "tokens"):
             raise RequestError("format must be 'pdb' or 'tokens'")
         if mask_ids is not None:
+            if mode == "eb":
+                raise RequestError("eb mode does not support inpainting "
+                                   "(mask_ids) — use gibbs or ddpm")
             mask_ids = [int(i) for i in mask_ids]
             bad = [i for i in mask_ids if not 0 <= i < len(seq)]
             if bad:
@@ -208,15 +217,28 @@ class SamplerService:
                                "ported yet")
         return {"seq": seq, "mode": mode, "n": n, "steps": steps,
                 "seed": seed, "temperature": temperature, "top_p": top_p,
-                "fmt": fmt, "prior_prot": prior_prot}
+                "fmt": fmt, "prior_prot": prior_prot,
+                "entropy_budget": float(req.get("entropy_budget", 1.0))}
 
     def _run_single(self, p: dict):
-        """Un-coalesced path (a 'pdb' sequence source, --coalesce off)."""
+        """Un-coalesced path (eb, a 'pdb' sequence source, --coalesce
+        off)."""
         with self._sample_lock:
             t_dev = time.time()  # sampling_sec = device phase, not queueing
-            tokens = self.sampler.ddpm_ensemble(
-                p["seq"], p["n"], num_steps=p["steps"], seed=p["seed"],
-                max_batch=self.max_batch)
+            if p["mode"] == "gibbs":
+                tokens = self.sampler.gibbs_ensemble(
+                    p["seq"], p["n"], config=_gibbs_config(p),
+                    seed=p["seed"], max_batch=self.max_batch)
+            elif p["mode"] == "ddpm":
+                tokens = self.sampler.ddpm_ensemble(
+                    p["seq"], p["n"], num_steps=p["steps"], seed=p["seed"],
+                    max_batch=self.max_batch)
+            else:
+                tokens = self.sampler.eb_ensemble(
+                    p["seq"], p["n"], entropy_budget=p["entropy_budget"],
+                    temperature=p["temperature"], top_p=p["top_p"],
+                    max_steps=p["steps"] * 8, seed=p["seed"],
+                    max_batch=self.max_batch)
             t_tokens = time.time() - t_dev
         prots = None
         if p["fmt"] == "pdb":
@@ -259,12 +281,17 @@ class SamplerService:
                 seqs = [it.seq for it in group]
                 counts = [it.n for it in group]
                 seeds = [it.seed for it in group]
-                engine = (self.sampler.ddpm_ensemble_mixed
-                          if len({bucket_length(len(s) + 2)
-                                  for s in seqs}) > 1
-                          else self.sampler.ddpm_ensemble_multi)
-                toks_list = engine(seqs, counts, num_steps=p["steps"],
-                                   seeds=seeds, max_batch=self.max_batch)
+                if p["mode"] == "gibbs":
+                    toks_list = self.sampler.gibbs_ensemble_mixed(
+                        seqs, counts, config=_gibbs_config(p), seeds=seeds,
+                        max_batch=self.max_batch)
+                else:
+                    engine = (self.sampler.ddpm_ensemble_mixed
+                              if len({bucket_length(len(s) + 2)
+                                      for s in seqs}) > 1
+                              else self.sampler.ddpm_ensemble_multi)
+                    toks_list = engine(seqs, counts, num_steps=p["steps"],
+                                       seeds=seeds, max_batch=self.max_batch)
                 t_tokens = time.time() - t_dev
             # phase 2 outside the sample lock
             need = [i for i, it in enumerate(group) if it.fmt == "pdb"]
@@ -295,12 +322,13 @@ class SamplerService:
     def warmup(self, req: dict) -> dict:
         """Run one request per length (and, with ``packed_lengths``, one
         cross-length packed group) so later requests at those shapes find
-        cuBLAS and the allocator warm.  Returns seconds per entry."""
+        cuBLAS and the allocator warm.  Returns seconds per entry.  The
+        packed run is the ddpm engine's, whatever the mode (as in JAX)."""
         lengths = req.get("lengths") or (
             [] if req.get("packed_lengths") else [64])
         n = int(req.get("num_samples", 10))
-        mode = req.get("mode", "ddpm")
-        steps = int(req.get("num_steps", 25))
+        mode = req.get("mode", "gibbs")
+        steps = int(req.get("num_steps", 25 if mode == "ddpm" else 16))
         fmt = req.get("format", "pdb")   # "pdb" warms the decoder too
         report = {}
 
@@ -316,8 +344,6 @@ class SamplerService:
                          "mode": mode, "num_steps": steps, "format": fmt})
             report[str(L)] = round(time.time() - t0, 2)
         if req.get("packed_lengths"):
-            if mode not in _PORTED_MODES:
-                raise RequestError(f"mode {mode!r} is not ported yet")
             pls = [int(x) for x in req["packed_lengths"]]
             for L in pls:
                 if not 2 < L <= _MAX_SEQ_LEN:
@@ -331,6 +357,11 @@ class SamplerService:
             report["packed:" + ",".join(map(str, pls))] = round(
                 time.time() - t0, 2)
         return {"warmed": report}
+
+
+def _gibbs_config(p: dict) -> GenerationConfig:
+    return GenerationConfig(num_steps=p["steps"],
+                            temperature=p["temperature"], top_p=p["top_p"])
 
 
 def make_handler(service: SamplerService):
@@ -401,7 +432,8 @@ def get_argparser():
                    help="Comma-separated lengths of an expected mixed "
                         "group (e.g. 58,120,250): one cross-length packed "
                         "run before accepting traffic.")
-    # None = /sample's default (25) unless the operator sets it
+    # None = /sample's per-mode default (ddpm 25, else 16) unless the
+    # operator sets it
     p.add_argument("--num_steps", type=int, default=None)
     p.add_argument("--max_batch", type=int, default=64)
     return p
@@ -411,8 +443,6 @@ def main(argv=None):
     from esmdiff_tpu_torch.cli.sample import build_runtime
 
     args = get_argparser().parse_args(argv)
-    if args.mode not in _PORTED_MODES:
-        raise NotImplementedError(f"--mode {args.mode} is not ported yet")
     if args.data_parallel:
         raise NotImplementedError("--data_parallel is not ported yet")
     runtime = build_runtime(args)

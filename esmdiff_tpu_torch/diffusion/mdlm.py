@@ -1,9 +1,10 @@
 """Masked Diffusion Language Modeling (ESMDiff) — the ancestral sampler.
 
 Port of the sampling half of ``esmdiff_tpu/diffusion/mdlm.py``:
-``forward_logits`` (the ``parameterize=False`` form: raw float32 logits with
-the mask-token and special-token shields) and ``ddpm_sample``, here a Python
-loop of ``num_steps + 1`` trunk forwards where JAX scans.
+``forward_logits`` (by default the ``parameterize=False`` form: raw float32
+logits with the mask-token and special-token shields; ``parameterize=True``
+gives the SUBS log-probabilities) and ``ddpm_sample``, here a Python loop of
+``num_steps + 1`` trunk forwards where JAX scans.
 
 Randomness is an injectable noise source: a callable ``step -> (gumbel
 (B, L, V) float32, stay_u (B, L) float32)`` giving the draws of step
@@ -49,6 +50,28 @@ def shield_special_tokens(logits):
     return logits
 
 
+def logits_parameterization(logits, xt, cfg: MDLMConfig):
+    """SUBS parameterization: no probability on the mask token; unmasked
+    positions carry themselves over with probability 1."""
+    logits = logits.float().clone()
+    logits[..., cfg.mask_index] += NEG_INFINITY
+    logits = torch.log_softmax(logits, dim=-1)
+    carry = torch.full_like(logits, NEG_INFINITY)
+    carry.scatter_(-1, xt.long()[..., None], 0.0)
+    return torch.where((xt != cfg.mask_index)[..., None], carry, logits)
+
+
+def row_generators(row_seeds: Sequence[int], device) -> list:
+    """One ``torch.Generator`` per row on ``device``, seeded with the row's
+    seed."""
+    gens = []
+    for s in row_seeds:
+        g = torch.Generator(device=device)
+        g.manual_seed(int(s))
+        gens.append(g)
+    return gens
+
+
 class RowGeneratorNoise:
     """Default noise source: one ``torch.Generator`` per row, on the rows'
     device, seeded with that row's seed.  Each step draws, row by row, a
@@ -59,11 +82,7 @@ class RowGeneratorNoise:
                  device):
         self.length, self.vocab = length, vocab
         self.device = torch.device(device)
-        self.generators = []
-        for s in row_seeds:
-            g = torch.Generator(device=self.device)
-            g.manual_seed(int(s))
-            self.generators.append(g)
+        self.generators = row_generators(row_seeds, self.device)
 
     def __call__(self, step: int):
         kw = dict(device=self.device, dtype=torch.float32)
@@ -96,13 +115,15 @@ class MDLM:
 
     def forward_logits(self, xt, condition_seq, sigma,
                        shield_specials: bool = False, sequence_id=None,
-                       lengths=None, pack: int = 1, positions=None):
+                       lengths=None, pack: int = 1, positions=None,
+                       parameterize: bool = False):
         """Conditioned forward -> (float32 logits, sequence logits or None).
 
-        The logits are raw (JAX's ``parameterize=False``): only the
-        mask-token and, optionally, special-token shields are applied —
+        By default the logits are raw (JAX's ``parameterize=False``): only
+        the mask-token and, optionally, special-token shields are applied —
         enough for Gumbel-max sampling, which is invariant to the
-        log-softmax normalisation.
+        log-softmax normalisation.  ``parameterize=True`` returns the SUBS
+        log-probabilities (``logits_parameterization``), then the shield.
 
         ``pack`` > 1 runs the trunk on a sequence-packed view: ``pack`` rows
         to a device row under a block-diagonal segment mask, positions
@@ -131,7 +152,11 @@ class MDLM:
                        positions=positions, auxiliary_embeddings=aux)
         # the head's float32 output is fresh: shield it in place
         logits = out.structure_logits.float().reshape(B, L, -1)
-        logits[..., self.cfg.mask_index] += NEG_INFINITY
+        if parameterize:
+            logits = logits_parameterization(logits, xt.reshape(B, L),
+                                             self.cfg)
+        else:
+            logits[..., self.cfg.mask_index] += NEG_INFINITY
         if shield_specials:
             shield_special_tokens(logits)
         seq_logits = (out.sequence_logits if self.cfg.sequence_prediction

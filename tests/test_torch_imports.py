@@ -44,12 +44,14 @@ def test_imports_without_jax():
 
 
 def test_serving_modules_import_without_jax():
-    """The serving slice's modules by name (the walk above covers them as
-    well): the int8 path, packing and the server."""
+    """The serving and sampler slices' modules by name (the walk above
+    covers them as well): the int8 path, packing, the server, the gibbs
+    and eb samplers and refinement."""
     probe = ("import sys\nsys.modules['jax'] = None\n"
              "sys.modules['flax'] = None\n"
              "import esmdiff_tpu_torch.ops.quant, esmdiff_tpu_torch.ops.packing"
-             ", esmdiff_tpu_torch.cli.serve\n"
+             ", esmdiff_tpu_torch.cli.serve, esmdiff_tpu_torch.ops.refine"
+             ", esmdiff_tpu_torch.diffusion.gibbs\n"
              "assert not [m for m in sys.modules if m.startswith("
              "'esmdiff_tpu.')]\n")
     res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
@@ -94,12 +96,12 @@ def test_server_without_device_raises(no_cuda):
 
 
 def test_unported_modes_raise(tmp_path):
-    for extra in (["--mode", "gibbs"], ["--data_parallel"],
+    for extra in (["--filled_ids", "1,2"], ["--data_parallel"],
                   ["--mask_ids", "1,2"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             cli.main(["--output", str(tmp_path), "--model_scale", "tiny",
                       "--device", "cpu", *extra])
-    for extra in (["--mode", "eb"], ["--data_parallel"]):
+    for extra in (["--ckpt", "trunk.pt"], ["--data_parallel"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             serve_cli.main(["--model_scale", "tiny", "--device", "cpu",
                             "--port", "0", *extra])

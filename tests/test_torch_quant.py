@@ -227,9 +227,10 @@ def test_decoder_quant_matches_jax():
 
 def test_cli_quant_int8(tmp_path, capsys):
     report = cli.main(["--input", str(ROOT / "data/targets/bpti"),
-                       "--output", str(tmp_path), "--num_steps", "2",
-                       "--num_samples", "2", "--model_scale", "tiny",
-                       "--device", "cpu", "--quant", "int8"])
+                       "--output", str(tmp_path), "--mode", "ddpm",
+                       "--num_steps", "2", "--num_samples", "2",
+                       "--model_scale", "tiny", "--device", "cpu",
+                       "--quant", "int8"])
     assert "W8A8 int8" in capsys.readouterr().out
     text = (tmp_path / "bpti.pdb").read_text()
     assert text.count("MODEL") == 2 and report[0]["num_samples"] == 2
@@ -246,9 +247,9 @@ def test_sample_cli_quantizes_a_given_runtime(tmp_path, monkeypatch):
 
     monkeypatch.setattr(ESM3Runtime, "quantize", spy)
     cli.main(["--input", str(ROOT / "data/targets/bpti"),
-              "--output", str(tmp_path), "--num_steps", "1",
-              "--num_samples", "1", "--device", "cpu", "--quant", "int8"],
-             runtime=rt)
+              "--output", str(tmp_path), "--mode", "ddpm", "--num_steps",
+              "1", "--num_samples", "1", "--device", "cpu", "--quant",
+              "int8"], runtime=rt)
     assert seen == [rt]
 
 
@@ -266,6 +267,6 @@ def test_quantize_refuses_bf16_matmul_weights(route, tmp_path):
             rt.quantize("int8")
         else:
             cli.main(["--input", str(ROOT / "data/targets/bpti"),
-                      "--output", str(tmp_path), "--num_steps", "1",
-                      "--num_samples", "1", "--device", "cpu",
-                      "--quant", "int8"], runtime=rt)
+                      "--output", str(tmp_path), "--mode", "ddpm",
+                      "--num_steps", "1", "--num_samples", "1",
+                      "--device", "cpu", "--quant", "int8"], runtime=rt)

@@ -1,12 +1,14 @@
-"""The port's ddpm serving path against the JAX package: the multi, packed
-and mixed engines on carried-over weights (int8 trunk, JAX's draws
-injected), the mixed router, the coalesced decode, and the server
-(``esmdiff_tpu_torch/cli/serve.py``) over HTTP on 127.0.0.1.
+"""The port's serving path against the JAX package: the ddpm multi, packed
+and mixed engines and the gibbs engines on carried-over weights (int8
+trunk, JAX's draws injected), the mixed router, the coalesced decode, and
+the server (``esmdiff_tpu_torch/cli/serve.py``) over HTTP on 127.0.0.1, in
+all three modes.
 
 Counterpart of ``tests/test_packed_multi.py`` and ``tests/test_serve.py``."""
 
 import json
 import threading
+import types
 import time
 import urllib.error
 import urllib.request
@@ -17,19 +19,23 @@ import pytest
 import torch
 
 from esmdiff_tpu.api.generation import EnsembleSampler as JSampler
+from esmdiff_tpu.api.generation import GenerationConfig as JConfig
 from esmdiff_tpu.api.protein_api import ESM3Runtime as JRuntime
 from esmdiff_tpu.cli.serve import RequestError as JRequestError
 from esmdiff_tpu.cli.serve import SamplerService as JService
 from esmdiff_tpu.models.esm3 import esm3_tiny as jesm3_tiny
 from esmdiff_tpu.models.vqvae import DecoderConfig as JDecoderConfig
 from esmdiff_tpu.models.vqvae import EncoderConfig as JEncoderConfig
-from esmdiff_tpu_torch.api.generation import EnsembleSampler
+from esmdiff_tpu_torch.api.generation import (EnsembleSampler,
+                                              GenerationConfig)
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime
+from esmdiff_tpu_torch.cli import serve as serve_cli
 from esmdiff_tpu_torch.cli.serve import RequestError, SamplerService, serve
 from esmdiff_tpu_torch.models.esm3 import ESM3, esm3_tiny
 from esmdiff_tpu_torch.models.vqvae import DecoderConfig, StructureTokenDecoder
 from esmdiff_tpu_torch.nn.layers import TimestepEmbedder
-from test_torch_support import carry, jax_request_noise_factory
+from test_torch_support import (carry, jax_request_noise_factory,
+                                jax_request_uniform_factory)
 
 torch.set_num_threads(2)
 
@@ -57,7 +63,8 @@ def samplers():
         carry(TimestepEmbedder(64, dtype=torch.float32), jrt.sigma_params),
         device="cpu")
     return (JSampler(jrt),
-            EnsembleSampler(rt, noise_factory=jax_request_noise_factory))
+            EnsembleSampler(rt, noise_factory=jax_request_noise_factory,
+                            uniform_factory=jax_request_uniform_factory))
 
 
 def test_engines_match_jax(samplers):
@@ -89,6 +96,25 @@ def test_same_bucket_multi_matches_jax(samplers):
     assert ts._pack(8, 32) == 4
     for o, r in zip(out, ref):
         np.testing.assert_array_equal(o, r)
+
+
+def test_gibbs_engines_match_jax_on_structure_head(samplers):
+    """gibbs on the int8 fine-tune head (specials shielded, as JAX does
+    off the stock head): the mixed engine's per-bucket sub-groups, and
+    eb, equal JAX's tokens."""
+    js, ts = samplers
+    cfg = dict(num_steps=3, temperature=1.4, top_p=0.9)
+    seqs, counts, seeds = [SEQ_LONG, SEQ_SHORT], [3, 2], [4, 6]
+    ref = js.gibbs_ensemble_mixed(seqs, counts, config=JConfig(**cfg),
+                                  seeds=seeds)
+    got = ts.gibbs_ensemble_mixed(seqs, counts,
+                                  config=GenerationConfig(**cfg), seeds=seeds)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+        assert (g < 4096).all()
+    kw = dict(entropy_budget=20.0, top_p=0.9, max_steps=24, seed=3)
+    np.testing.assert_array_equal(ts.eb_ensemble(SEQ_SHORT, 2, **kw),
+                                  js.eb_ensemble(SEQ_SHORT, 2, **kw))
 
 
 @pytest.mark.parametrize("lws,counts,T", [
@@ -170,6 +196,12 @@ _BAD = [
     {"sequence": "MKT", "mode": "ddpm", "mask_ids": [99]},
     {"sequence": "MKT", "mode": "ddpm", "mask_ids": [1]},
     {"sequence": "M" * 60, "mode": "ddpm", "pdb": "<bpti>"},
+    {"sequence": "MKT", "num_samples": 99},
+    {"sequence": "MKT", "mode": "eb", "mask_ids": [1]},
+    {"sequence": "MKT", "mode": "eb", "format": "xml"},
+    {"sequence": "MKT", "mode": "gibbs", "mask_ids": [1]},
+    {"sequence": "M" * 60, "mode": "gibbs", "pdb": "<bpti>"},
+    {"sequence": "MKZ1", "mode": "eb"},
 ]
 
 
@@ -192,36 +224,73 @@ def test_request_parse_matches_jax(server, jax_service):
     got, ref = service._parse(req), jax_service._parse(req)
     for key in ("seq", "mode", "n", "steps", "seed", "fmt"):
         assert got[key] == ref[key], key
+    # the defaults by mode: gibbs, 16 steps outside ddpm, 25 in it
+    for req in ({"sequence": SEQ_LONG}, {"sequence": SEQ_LONG, "mode": "eb",
+                                         "entropy_budget": 2.5,
+                                         "temperature": 0.7}):
+        got, ref = service._parse(req), jax_service._parse(req)
+        for key in ("mode", "n", "steps", "seed", "temperature", "top_p",
+                    "entropy_budget", "fmt"):
+            assert got[key] == ref[key], key
     got = service._parse({"pdb": open(BPTI_PDB).read(), "mode": "ddpm"})
     assert len(got["seq"]) == 58 and got["prior_prot"] is not None
 
 
 def test_http_errors_and_unported(server):
+    """What stays unported: inpainting (a 'pdb' prior with mask_ids, in
+    gibbs and ddpm) is a 400, ``--data_parallel`` raises."""
     base, _ = server
+    pdb = open(BPTI_PDB).read()
     for payload, frag in [
             ({"sequence": "X1"}, "invalid residue"),
-            ({"sequence": "MKT", "mode": "gibbs"}, "not ported yet"),
-            ({"sequence": "MKT", "mode": "eb"}, "not ported yet"),
-            ({"pdb": open(BPTI_PDB).read(), "mask_ids": [1, 2]},
-             "not ported yet")]:
+            ({"pdb": pdb, "mask_ids": [1, 2]}, "not ported yet"),
+            ({"pdb": pdb, "mode": "ddpm", "mask_ids": [1, 2]},
+             "not ported yet"),
+            ({"pdb": pdb, "mode": "eb", "mask_ids": [1]},
+             "eb mode does not support inpainting")]:
         status, body = _post(base + "/sample", payload)
         assert status == 400 and frag in body["error"], (payload, body)
     status, body = _post(base + "/sample", [1, 2, 3])
     assert status == 400 and "JSON object" in body["error"]
     assert _post(base + "/nope", {})[0] == 404
+    with pytest.raises(NotImplementedError, match="not ported"):
+        serve_cli.main(["--model_scale", "tiny", "--device", "cpu",
+                        "--port", "0", "--data_parallel"])
+
+
+def test_ddpm_on_a_stock_head_server_matches_jax():
+    """A server built for gibbs (stock head) answers ddpm with JAX's 400;
+    gibbs and eb parse."""
+    def service(cls, head):
+        runtime = types.SimpleNamespace(
+            trunk=types.SimpleNamespace(
+                cfg=types.SimpleNamespace(head_type=head)),
+            sigma_embedder=object(), sigma_params={})
+        return cls(types.SimpleNamespace(runtime=runtime), max_samples=16)
+
+    port, ref = service(SamplerService, "esm3"), service(JService, "esm3")
+    req = {"sequence": "MKT", "mode": "ddpm"}
+    with pytest.raises(JRequestError) as want:
+        ref._parse(req)
+    with pytest.raises(RequestError) as got:
+        port._parse(req)
+    assert str(got.value) == str(want.value)
+    for mode in ("gibbs", "eb"):
+        assert port._parse({"sequence": "MKT", "mode": mode})["mode"] == mode
 
 
 def test_healthz_and_pdb_sample(server):
+    """A request with no mode runs gibbs, JAX's default."""
     base, _ = server
     status, body = _post(base + "/sample", {
         "sequence": SEQ_LONG, "num_samples": 2, "num_steps": 2})
     assert status == 200, body
-    assert body["pdb"].count("MODEL") == 2 and body["mode"] == "ddpm"
+    assert body["pdb"].count("MODEL") == 2 and body["mode"] == "gibbs"
     status, health = _get(base + "/healthz")
     assert status == 200 and health["ok"]
     assert health["device"] == "cpu" and health["card"] is None
     assert health["model"]["quant"] == "int8"
-    assert health["latency"]["ddpm"]["count"] >= 1
+    assert health["latency"]["gibbs"]["count"] >= 1
 
 
 def _coalesced(base, service, payloads):
@@ -250,13 +319,13 @@ def _coalesced(base, service, payloads):
 def test_coalesced_requests_are_seed_deterministic(server):
     base, service = server
     req = {"sequence": SEQ_LONG, "num_samples": 3, "num_steps": 2,
-           "seed": 123, "format": "tokens"}
+           "seed": 123, "format": "tokens", "mode": "ddpm"}
     status, solo = _post(base + "/sample", req)
     assert status == 200, solo
     res = _coalesced(base, service, [
         req,
         {"sequence": "GSHMEAGITGTWYNQLGSTFIVTAGADGALTGTYE", "num_samples": 2,
-         "num_steps": 2, "seed": 9, "format": "tokens"},
+         "num_steps": 2, "seed": 9, "format": "tokens", "mode": "ddpm"},
         {**req, "num_samples": 1, "seed": 77}])
     for status, body in res:
         assert status == 200 and body["coalesced"] == 3, body
@@ -270,9 +339,9 @@ def test_cross_length_requests_coalesce(server):
     (the mixed router), each with its solo tokens."""
     base, service = server
     reqs = [{"sequence": SEQ_SHORT, "num_samples": 3, "num_steps": 2,
-             "seed": 5, "format": "tokens"},
+             "seed": 5, "format": "tokens", "mode": "ddpm"},
             {"sequence": SEQ_LONG, "num_samples": 2, "num_steps": 2,
-             "seed": 17, "format": "pdb"}]
+             "seed": 17, "format": "pdb", "mode": "ddpm"}]
     solos = [_post(base + "/sample", r)[1] for r in reqs]
     res = _coalesced(base, service, reqs)
     assert [b["coalesced"] for _, b in res] == [2, 2]
@@ -289,3 +358,52 @@ def test_warmup_with_packed_lengths(server):
     assert set(body["warmed"]) == {"20", "packed:10,41"}
     status, body = _post(base + "/warmup", {"lengths": [1]})
     assert status == 400 and "out of range" in body["error"]
+
+
+def test_gibbs_requests_coalesce_with_solo_tokens(server):
+    """Concurrent gibbs requests across two buckets coalesce into one group
+    (per-bucket sub-groups), each with its solo tokens; a concurrent ddpm
+    request keys a group of its own."""
+    base, service = server
+    reqs = [{"sequence": SEQ_SHORT, "num_samples": 3, "num_steps": 3,
+             "seed": 5, "format": "tokens"},
+            {"sequence": SEQ_LONG, "num_samples": 2, "num_steps": 3,
+             "seed": 17, "format": "pdb", "mode": "gibbs"},
+            {"sequence": "GSHMEAGITG", "num_samples": 2, "num_steps": 3,
+             "seed": 8, "format": "tokens"}]
+    solos = [_post(base + "/sample", r)[1] for r in reqs]
+    res = _coalesced(base, service, reqs + [
+        {**reqs[0], "mode": "ddpm", "num_steps": 2}])
+    assert [b.get("coalesced") for _, b in res] == [3, 3, 3, None]
+    assert all(b["mode"] == "gibbs" for _, b in res[:3])
+    assert res[0][1]["tokens"] == solos[0]["tokens"]
+    assert res[1][1]["pdb"] == solos[1]["pdb"]
+    assert res[2][1]["tokens"] == solos[2]["tokens"]
+    assert res[3][1]["mode"] == "ddpm"
+
+
+def test_eb_requests_run_alone(server):
+    """eb never coalesces; it answers with tokens of the request's shape,
+    every position committed within its 8 x num_steps steps."""
+    base, service = server
+    req = {"sequence": SEQ_SHORT, "num_samples": 2, "num_steps": 2,
+           "mode": "eb", "entropy_budget": 30.0, "format": "tokens",
+           "seed": 3}
+    status, solo = _post(base + "/sample", req)
+    assert status == 200 and solo["mode"] == "eb", solo
+    assert np.asarray(solo["tokens"]).shape == (2, len(SEQ_SHORT))
+    assert service.sampler.eb_steps and max(service.sampler.eb_steps) <= 16
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        res = list(ex.map(lambda r: _post(base + "/sample", r), [req, req]))
+    for status, body in res:
+        assert status == 200 and "coalesced" not in body
+        assert body["tokens"] == solo["tokens"]
+
+
+def test_warmup_gibbs_and_eb(server):
+    base, _ = server
+    for mode in ("gibbs", "eb"):
+        status, body = _post(base + "/warmup", {
+            "lengths": [12, 40], "num_samples": 2, "num_steps": 2,
+            "mode": mode, "format": "tokens"})
+        assert status == 200 and set(body["warmed"]) == {"12", "40"}, body

@@ -79,3 +79,30 @@ def jax_request_noise_factory(rows, L, V, device):
         np.asarray(jax.random.fold_in(jax.random.PRNGKey(int(s)), int(j)))
         for s, j in rows])
     return jax_ddpm_draws(keys, L, V)
+
+
+def jax_unmask_uniforms(row_keys, L: int, V: int):
+    """The draws ``esmdiff_tpu`` ``iterative_unmask_sample`` and
+    ``entropy_bounded_unmask_sample`` make, as a uniform source for the
+    port: per step ``uniform(fold_in(row_key, step), (L, V))`` a row."""
+    row_keys = jnp.asarray(row_keys, jnp.uint32)
+
+    @jax.jit
+    def draws(step):
+        ks = jax.vmap(lambda rk: jax.random.fold_in(rk, step))(row_keys)
+        return jax.vmap(lambda k: jax.random.uniform(k, (L, V)))(ks)
+
+    def source(step):
+        return torch.from_numpy(np.array(draws(jnp.int32(step))))
+
+    return source
+
+
+def jax_request_uniform_factory(rows, L, V, device):
+    """Uniform factory for the port's EnsembleSampler that reproduces the
+    JAX gibbs and eb engines' draws: row (seed, j) gets
+    ``request_row_keys(seed, ...)[j]`` = ``fold_in(PRNGKey(seed), j)``."""
+    keys = np.stack([
+        np.asarray(jax.random.fold_in(jax.random.PRNGKey(int(s)), int(j)))
+        for s, j in rows])
+    return jax_unmask_uniforms(keys, L, V)
