@@ -67,12 +67,28 @@ Phases, each of which fails loudly (no error is caught):
      ``F.linear``, and the host and device time of one step's draws for 64
      samples (a generator a row, and the packed engine's per-segment
      placement);
-  7. print the card, each path's numbers, the kernels line, and as the last
+  7. the inpaint path: the default runtime (ddpm) and the gibbs path's
+     stock-head runtime (gibbs), sharing one full-width structure encoder
+     (float32, d 1024, 2 layers, k 16), through the CLI's --mask_ids and
+     --filled_ids on both targets, one contiguous span each (named in the
+     output), 100 samples: every known position keeps its encoded prior
+     token in every sample, exact launch counts (the encoder launches no
+     kernel: its attention takes the plain path by its config); the
+     encoder on the card against its CPU copy (tokens equal but at near
+     ties of the two nearest codes, z within 1e-4 relative L2); the trunk
+     with structure coordinates (geometric attention, B 8 on the
+     118-residue chain), kernel against plain version as on the default
+     path; the server's inpainting requests in ddpm and gibbs (finite
+     multi-MODEL PDBs; eb with mask_ids a 400); cli.dump of BPTI with
+     embeddings (its structure tokens equal the runtime's encode); encode
+     ms per target on a warm process;
+  8. print the card, each path's numbers, the kernels line, and as the last
      line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA card or without the
 rest of the repo beside it.
 """
 
+import contextlib
 import json
 import math
 import shutil
@@ -103,6 +119,9 @@ NUM_SAMPLES, NUM_STEPS, DECODE_BATCH = 100, 25, 32
 # --num_steps 25, so at most 200 steps, budget 1.0 (the CLI's defaults)
 GIBBS_STEPS, GIBBS_TEMPERATURE, GIBBS_TOP_P = 16, 1.4, 0.9
 EB_NUM_STEPS = 25
+# the inpaint path's spans, 0-based residues: 15 of BPTI's 58, 18 of
+# 1jm4.B's 118
+INPAINT_SPANS = {"bpti": range(10, 25), "1jm4.B": range(40, 58)}
 KERNELS = ("flash_attention", "small_attention", "fused_qkv", "fused_ffn")
 REPLACES = {
     "flash_attention": "esmdiff_tpu/ops/flash_attention.py:37",
@@ -337,10 +356,9 @@ def check_pdb(text: str, n_models: int, n_atoms: int, where: str):
                              f"{len(atoms)} atoms (want {n_atoms})")
 
 
-def trunk_logits(torch, runtime, patches):
+def bpti_logits(torch, runtime):
     """Structure logits of one full-width trunk forward on two BPTI rows
-    (lengths 60 and 40), with each (module, name) in ``patches`` replaced
-    by its function for the call."""
+    (lengths 60 and 40): the first row's valid positions."""
     from esmdiff_tpu_torch.api.protein_api import ESMProtein
 
     seq = runtime.seq_tokenizer.encode(
@@ -348,19 +366,26 @@ def trunk_logits(torch, runtime, patches):
     toks = torch.full((2, 64), 1, dtype=torch.long, device="cuda")
     toks[:, :len(seq)] = torch.as_tensor(seq, device="cuda")
     lengths = torch.tensor([len(seq), 40], dtype=torch.int32, device="cuda")
+    out = runtime.trunk(sequence_tokens=toks, lengths=lengths)
+    return out.structure_logits[0, :len(seq)]
+
+
+def trunk_logits(torch, runtime, patches, forward=bpti_logits):
+    """``forward(torch, runtime)`` under no_grad, with each (module, name)
+    in ``patches`` replaced by its function for the call."""
     saved = {key: getattr(*key) for key in patches}
     for (module, name), fn in patches.items():
         setattr(module, name, fn)
     try:
         with torch.no_grad():
-            out = runtime.trunk(sequence_tokens=toks, lengths=lengths)
+            return forward(torch, runtime)
     finally:
         for (module, name), fn in saved.items():
             setattr(module, name, fn)
-    return out.structure_logits[0, :len(seq)]
 
 
-def kernel_vs_plain(torch, runtime, kernel, plain, other):
+def kernel_vs_plain(torch, runtime, kernel, plain, other,
+                    forward=bpti_logits):
     """Relative L2 of the trunk logits with the kernels against their plain
     versions, and the floor: the plain versions against the plain path's
     other rounding (the JAX package's unfused forms).  Through 48 random
@@ -371,7 +396,7 @@ def kernel_vs_plain(torch, runtime, kernel, plain, other):
     logits = []
     for patches in (kernel, plain, other):
         before = sum(op.launches for op in ops)
-        logits.append(trunk_logits(torch, runtime, patches))
+        logits.append(trunk_logits(torch, runtime, patches, forward))
         if (sum(op.launches for op in ops) > before) != (patches is kernel):
             raise AssertionError("the logits gate's patches missed the "
                                  "kernels' call sites")
@@ -704,7 +729,7 @@ def gibbs_path(torch, runtime, ops, target_dirs, lws, gen):
     rt = ESM3Runtime.random_init(
         seed=0, trunk_cfg=ESM3Config(head_type="esm3"), device="cuda")
     stock_rt = ESM3Runtime(rt.trunk, runtime.decoder, rt.sigma_embedder,
-                           device="cuda")
+                           device="cuda", encoder=runtime.encoder)
     del rt
     torch.cuda.synchronize()
     init_s = time.time() - t0
@@ -772,7 +797,7 @@ def gibbs_path(torch, runtime, ops, target_dirs, lws, gen):
         "launches": launches,
         "trunk_logits_rel_l2_kernel_vs_plain": rel,
         "trunk_logits_rel_l2_plain_roundings": floor,
-        "anatomy_1jm4_B": anatomy}, launches
+        "anatomy_1jm4_B": anatomy}, launches, stock_rt
 
 
 def serve_path(torch, runtime, ops, card, gen):
@@ -1060,6 +1085,280 @@ def serve_path(torch, runtime, ops, card, gen):
     return numbers, bpti_launches
 
 
+@contextlib.contextmanager
+def recorded(cls, name):
+    """Keeps what ``cls.name`` returns while the block runs (the tokens the
+    CLI samples, for the prior gate); the call itself is unchanged."""
+    orig, outputs = getattr(cls, name), []
+
+    def keep(sampler, *args, **kwargs):
+        outputs.append(orig(sampler, *args, **kwargs))
+        return outputs[-1]
+
+    setattr(cls, name, keep)
+    try:
+        yield outputs
+    finally:
+        setattr(cls, name, orig)
+
+
+def prior_kept(tokens, prior, C):
+    """Positions (over every sample) where a known token (a code in the
+    prior) was not kept; the prior must hold both kinds."""
+    known = prior != C.STRUCTURE_MASK_TOKEN
+    if known.all() or not known.any():
+        raise AssertionError("the prior holds no span to inpaint")
+    return int((tokens[:, known] != prior[known]).sum())
+
+
+def encoder_card_vs_cpu(torch, encoder, backbones):
+    """The encoder on the card against its float32 CPU copy on each
+    target's backbone: tokens differing outside near ties (the two nearest
+    codes within 1e-5 relative distance, by the CPU's z; must be 0), near
+    ties, z's relative L2 (at most 1e-4)."""
+    import copy
+
+    cpu = copy.deepcopy(encoder).cpu()
+    out = {}
+    for key, bb in backbones.items():
+        x = torch.as_tensor(bb[None], dtype=torch.float32)
+        with torch.no_grad():
+            tokens, z, valid = encoder(x.cuda())
+            ref_tokens, ref_z, ref_valid = cpu(x)
+        d = torch.cdist(ref_z[0].double(), cpu.codebook.double())
+        two = d.topk(2, dim=-1, largest=False).values
+        near_tie = (two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 0]
+        differ = (tokens.cpu()[0] != ref_tokens[0])
+        out[key] = {
+            "tokens_differing": int((differ & ~near_tie).sum()),
+            "tokens_differing_at_near_ties": int((differ & near_tie).sum()),
+            "near_ties": int(near_tie.sum()),
+            "z_rel_l2": ((z.cpu() - ref_z).norm() / ref_z.norm()).item(),
+            "valid_equal": bool(torch.equal(valid.cpu(), ref_valid))}
+        if (out[key]["tokens_differing"] or out[key]["z_rel_l2"] > 1e-4
+                or not out[key]["valid_equal"]):
+            raise AssertionError(f"encoder, card vs CPU on {key}: "
+                                 f"{out[key]}")
+    return out
+
+
+def coords_logits(torch, runtime, seq, backbone):
+    """Structure logits of one full-width trunk forward with structure
+    coordinates (geometric attention in block 0) on 8 rows of ``seq``
+    (bucket 128, prefix lengths), row r with 4 r residues' frames removed
+    from the middle: the rows' valid positions."""
+    import numpy as np
+
+    toks = runtime.seq_tokenizer.encode(seq)
+    lw, L, B = len(toks), 128, 8
+    coords = np.full((B, L, 3, 3), np.nan, np.float32)
+    coords[:, 1:lw - 1] = backbone
+    for r in range(B):
+        coords[r, 40:40 + 4 * r] = np.nan
+    seq_b = torch.full((B, L), 1, dtype=torch.long, device="cuda")
+    seq_b[:, :lw] = torch.as_tensor(toks, device="cuda")
+    out = runtime.trunk(
+        sequence_tokens=seq_b,
+        structure_coords=torch.as_tensor(coords, device="cuda"),
+        lengths=torch.full((B,), lw, dtype=torch.int32, device="cuda"))
+    return out.structure_logits[:, :lw]
+
+
+def inpaint_path(torch, runtime, stock_rt, ops, target_dirs, lws, card):
+    """Phase 7 (module docstring).  Returns (numbers, launches summed over
+    the path's CLI runs, server requests and dump; the gate forwards that
+    hold kernels against plain versions do not count)."""
+    import numpy as np
+
+    from esmdiff_tpu_torch.api.generation import EnsembleSampler
+    from esmdiff_tpu_torch.api.protein_api import ESMProtein
+    from esmdiff_tpu_torch.cli import dump as dump_cli
+    from esmdiff_tpu_torch.cli import sample as cli
+    from esmdiff_tpu_torch.cli import serve as server
+    from esmdiff_tpu_torch.core import constants as C
+    from esmdiff_tpu_torch.nn.attention import plain_attention_with_lengths
+
+    t_phase = time.time()
+    fa = ops["flash_attention"]
+    if stock_rt.encoder is not runtime.encoder:
+        raise AssertionError("the ddpm and gibbs runtimes must share one "
+                             "encoder")
+    pdbs = {key: next(d.glob("*.pdb")) for key, d in target_dirs.items()}
+    prots = {key: ESMProtein.from_pdb(p) for key, p in pdbs.items()}
+    spans = {key: list(INPAINT_SPANS[key]) for key in prots}
+
+    # encode ms per target (warm: one untimed call first), no kernel
+    encode_ms, priors = {}, {}
+    fa_before = fa.launches
+    for key, prot in prots.items():
+        runtime.encode(prot)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            structure = runtime.encode(prot).structure
+        encode_ms[key] = 1e3 * (time.perf_counter() - t0) / 5
+        ddpm_prior = structure[1:-1].copy()
+        ddpm_prior[spans[key]] = C.STRUCTURE_MASK_TOKEN
+        coords = prot.coordinates.copy()
+        coords[spans[key]] = np.inf
+        seq = "".join("_" if i in spans[key] else ch
+                      for i, ch in enumerate(prot.sequence))
+        priors[key] = {"ddpm": ddpm_prior, "gibbs": runtime.encode(
+            ESMProtein(seq, coords)).structure[1:-1]}
+    if fa.launches != fa_before:
+        raise AssertionError("the encoder launched the flash kernel")
+    card_vs_cpu = encoder_card_vs_cpu(
+        torch, runtime.encoder,
+        {key: prot.backbone() for key, prot in prots.items()})
+
+    # the CLI, as it ships, with --mask_ids / --filled_ids, 100 samples
+    trunk_cfg, dec_layers = runtime.trunk.cfg, runtime.decoder.cfg.n_layers
+    runs = [("ddpm", "bpti", "--mask_ids"), ("ddpm", "bpti", "--filled_ids"),
+            ("ddpm", "1jm4.B", "--mask_ids"), ("gibbs", "bpti", "--mask_ids"),
+            ("gibbs", "1jm4.B", "--mask_ids")]
+    out_dir = ROOT / "output" / "chip_smoke_inpaint"
+    launches = {k: 0 for k in KERNELS}
+    numbers = {}
+    for mode, key, flag in runs:
+        ids = spans[key] if flag == "--mask_ids" else [
+            i for i in range(len(prots[key].sequence))
+            if i not in spans[key]]
+        rt, steps = ((runtime, NUM_STEPS) if mode == "ddpm"
+                     else (stock_rt, GIBBS_STEPS))
+        name = f"{mode} {key} {flag}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for op in ops.values():
+            op.launches = 0
+        method = "ddpm_ensemble" if mode == "ddpm" else "gibbs_ensemble"
+        with recorded(EnsembleSampler, method) as outputs:
+            report = cli.main(
+                ["--input", str(target_dirs[key]), "--output",
+                 str(out_dir / f"{mode}_{key}_{flag[2:]}"), "--mode", mode,
+                 "--num_steps", str(steps), "--num_samples",
+                 str(NUM_SAMPLES), "--seed", "0", flag,
+                 ",".join(map(str, ids))], runtime=rt)[0]
+        run_launches = {k: op.launches for k, op in ops.items()}
+        plan_forwards = ([NUM_STEPS + 1] * 2 if mode == "ddpm"
+                         else [GIBBS_STEPS] * 2)
+        want = path_launches(trunk_cfg, dec_layers, lws[key], False,
+                             plan_forwards)
+        if run_launches != want:
+            raise AssertionError(f"inpaint path, {name}: launches "
+                                 f"{run_launches}, expected {want}")
+        differ = prior_kept(outputs[0], priors[key][mode], C)
+        if differ:
+            raise AssertionError(f"inpaint path, {name}: {differ} known "
+                                 f"positions lost their prior token")
+        pdb = out_dir / f"{mode}_{key}_{flag[2:]}" / f"{report['target']}.pdb"
+        check_pdb(pdb.read_text(), NUM_SAMPLES,
+                  NUM_SAMPLES * (report["L"] * 4 - 1), str(pdb))
+        for k in KERNELS:
+            launches[k] += run_launches[k]
+        trunk_steps = 2 * (NUM_STEPS + 1 if mode == "ddpm" else GIBBS_STEPS)
+        numbers[name] = {
+            "span": [spans[key][0], spans[key][-1]],
+            "sampling_s": report["sampling_sec"],
+            "total_s": report["total_sec"],
+            "conformations_per_s": NUM_SAMPLES / report["total_sec"],
+            "trunk_steps": trunk_steps,
+            "ms_per_step": 1e3 * report["sampling_sec"] / trunk_steps,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": run_launches, "prior_positions_differing": differ}
+
+    # the trunk with coordinates, kernel against plain version
+    key = L128_TARGET.stem
+
+    def with_coords(torch, rt):
+        return coords_logits(torch, rt, prots[key].sequence,
+                             prots[key].backbone())
+
+    rel, floor = kernel_vs_plain(
+        torch, runtime,
+        {}, {(fa, "flash_attention"): fa.flash_attention_reference},
+        {(fa, "flash_attention"): plain_attention_with_lengths},
+        forward=with_coords)
+    if not rel <= 2 * floor:
+        raise AssertionError(f"full-width trunk logits with coordinates, "
+                             f"kernel vs plain version: relative L2 {rel}, "
+                             f"more than twice the two plain roundings' "
+                             f"{floor}")
+
+    # the server: inpainting in ddpm and gibbs (the structure-head runtime,
+    # as `cli.serve --mode ddpm` builds it, serves both), eb's 400
+    service = server.SamplerService(EnsembleSampler(runtime))
+    httpd = server.serve(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_port}/sample"
+    pdb_text = pdbs["bpti"].read_text()
+    serve_numbers = {}
+    try:
+        for mode in ("ddpm", "gibbs"):
+            fa_before = fa.launches
+            t0 = time.time()
+            status, reply = post(url, {
+                "pdb": pdb_text, "mode": mode, "mask_ids": spans["bpti"],
+                "num_samples": NUM_SAMPLES, "seed": 0, "format": "pdb"})
+            request_s = time.time() - t0
+            if status != 200:
+                raise AssertionError(f"/sample inpainting {mode}: {status} "
+                                     f"{reply}")
+            check_pdb(reply["pdb"], NUM_SAMPLES,
+                      NUM_SAMPLES * (len(prots["bpti"].sequence) * 4 - 1),
+                      f"/sample inpainting {mode}")
+            # BPTI's ladder plan packs every batch: flash in the decoder
+            want = dec_layers * -(-NUM_SAMPLES // DECODE_BATCH)
+            if fa.launches - fa_before != want:
+                raise AssertionError(f"/sample inpainting {mode}: "
+                                     f"{fa.launches - fa_before} flash "
+                                     f"launches, expected {want}")
+            launches["flash_attention"] += want
+            serve_numbers[mode] = {"request_s": request_s,
+                                   "sampling_s": reply["sampling_sec"],
+                                   "flash_attention_launches": want}
+        status, bad = post(url, {"pdb": pdb_text, "mode": "eb",
+                                 "mask_ids": [1]})
+        if status != 400 or "eb mode does not support" not in bad["error"]:
+            raise AssertionError(f"eb with mask_ids: {status} {bad}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+
+    # cli.dump of BPTI with embeddings: one trunk forward (flash per layer)
+    fa_before = fa.launches
+    dump_dir = ROOT / "output" / "chip_smoke_dump"
+    if dump_cli.main([str(target_dirs["bpti"]), str(dump_dir),
+                      "--with_embeddings"], runtime=runtime) != 1:
+        raise AssertionError("cli.dump wrote no encoding")
+    dump_launches = fa.launches - fa_before
+    with np.load(dump_dir / "bpti.npz") as z:
+        dumped = {k: z[k] for k in z.files}
+    lw = lws["bpti"]
+    if not (np.array_equal(dumped["structure_tokens"],
+                           runtime.encode(prots["bpti"]).structure)
+            and dumped["embeddings"].shape == (lw, trunk_cfg.d_model)
+            and np.isfinite(dumped["embeddings"]).all()
+            and dump_launches == trunk_cfg.n_layers):
+        raise AssertionError(f"cli.dump: {sorted(dumped)}, embeddings "
+                             f"{dumped['embeddings'].shape}, flash "
+                             f"{dump_launches}")
+    launches["flash_attention"] += dump_launches
+    return {
+        "card": card, "phase_s": time.time() - t_phase,
+        "spans": {k: [v[0], v[-1]] for k, v in spans.items()},
+        "encoder": {"config": "d 1024, 1 head, v_heads 128, 2 layers, "
+                              "d_out 128, 4096 codes, k 16, float32",
+                    "encode_ms": encode_ms, "card_vs_cpu": card_vs_cpu},
+        "runs": numbers, "launches": launches,
+        "server": serve_numbers,
+        "trunk_with_coords_rel_l2_kernel_vs_plain": rel,
+        "trunk_with_coords_rel_l2_plain_roundings": floor,
+        "dump": {"files": sorted(dumped), "flash_attention_launches":
+                 dump_launches}}, launches
+
+
 def main() -> int:
     import torch
 
@@ -1237,8 +1536,8 @@ def main() -> int:
         "trunk_logits_rel_l2_plain_roundings": f_floor}), flush=True)
 
     # 5. the gibbs path: the stock-head trunk through the CLI, gibbs and eb
-    g_numbers, g_launches = gibbs_path(torch, runtime, ops, target_dirs, lws,
-                                       gen)
+    g_numbers, g_launches, stock_rt = gibbs_path(torch, runtime, ops,
+                                                 target_dirs, lws, gen)
     print("[gibbs path] " + json.dumps({"card": card, **g_numbers}),
           flush=True)
 
@@ -1246,14 +1545,21 @@ def main() -> int:
     s_numbers, s_launches = serve_path(torch, runtime, ops, card, gen)
     print("[serve path] " + json.dumps(s_numbers), flush=True)
 
-    # 7. the kernels line (headline shape: the trunk's), the device line;
-    # launches from the path that runs the kernel, fused_ffn's from its
+    # 7. the inpaint path: the encoder, --mask_ids/--filled_ids, the
+    # server's priors, the trunk with coordinates, cli.dump
+    i_numbers, i_launches = inpaint_path(torch, runtime, stock_rt, ops,
+                                         target_dirs, lws, card)
+    print("[inpaint path] " + json.dumps(i_numbers), flush=True)
+
+    # 8. the kernels line (headline shape: the trunk's), the device line;
+    # launches from the paths that run the kernel, fused_ffn's from its
     # phase (no model path runs it)
     by_path = {"default path": launches, "fused path": f_launches,
-               "gibbs path": g_launches, "serve path": s_launches}
-    launches_from = {"flash_attention": "default path",
-                     "small_attention": "fused path",
-                     "fused_qkv": "fused path"}
+               "gibbs path": g_launches, "serve path": s_launches,
+               "inpaint path": i_launches}
+    launches_from = {"flash_attention": ("default path", "inpaint path"),
+                     "small_attention": ("fused path",),
+                     "fused_qkv": ("fused path",)}
     entries = []
     for name in KERNELS:
         head = shapes[name][0]
@@ -1262,9 +1568,10 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"esmdiff_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": (by_path[src][name] if src
+            "launches": (sum(by_path[p][name] for p in src) if src
                          else ffn_phase_launches),
-            "launches_from": src or "kernel phase: no model path runs it",
+            "launches_from": (" + ".join(src) if src
+                              else "kernel phase: no model path runs it"),
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
             "max_abs_err": max(s["max_abs_err"] for s in shapes[name]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],

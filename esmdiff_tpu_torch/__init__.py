@@ -4,7 +4,9 @@ A second package beside ``esmdiff_tpu`` (the JAX reference, which it never
 imports).  It runs the sampling paths end to end: sequence -> ESM3 trunk
 (the ``ddpm`` masked-diffusion sampler, or ``gibbs``/``eb`` unmasking on
 the stock head) -> VQ-VAE decoder -> multi-MODEL PDB, from the CLI or the
-HTTP server.  Each Pallas kernel of the JAX package has a
+HTTP server, and the encode path: a structure -> VQ-VAE encoder ->
+structure tokens, which condition an ensemble (inpainting) or are dumped
+for training.  Each Pallas kernel of the JAX package has a
 hand-written CUDA counterpart (``ops/*.py`` over ``csrc/*.cu``, built by
 ``ops/_build.py``): flash attention on the default path, fused LN + QKV +
 QK-LN and rotary-fused attention in the trunk's ``qkv_backend="fused"``,

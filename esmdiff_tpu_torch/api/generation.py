@@ -3,8 +3,9 @@ the memory-aware batch planner, length buckets, per-row seeding, sequence
 packing of short buckets, the ddpm engines (solo, same-bucket coalesced,
 cross-length packed, and the cost-routed mixed one that picks between the
 last two), the gibbs engines (solo, coalesced, and mixed as per-bucket
-sub-groups), the eb engine, and the batched VQ decode, also coalesced
-across requests.
+sub-groups), the eb engine, inpainting from an encoded structure (ddpm's
+``mask_ids``/``filled_ids``, gibbs's coordinate prior), and the batched VQ
+decode, also coalesced across requests.
 
 A sample's draws depend only on (its request's seed, its index in the
 request): a noise factory builds them for a row of the sample's own length
@@ -253,19 +254,42 @@ class EnsembleSampler:
                       num_steps: int = 25, eps: float = 1e-5, seed: int = 0,
                       mask_ids: Optional[Sequence[int]] = None,
                       filled_ids: Optional[Sequence[int]] = None,
+                      structure_tokens: Optional[np.ndarray] = None,
                       sample_max_t: float = 1.0,
                       budget: int = N_MAX_RESIDUE_SQUARE,
-                      max_batch: Optional[int] = None) -> np.ndarray:
+                      max_batch: Optional[int] = None,
+                      ref_compat: bool = False) -> np.ndarray:
         """Generate ``num_samples`` structure-token strings for ``sequence``:
-        (num_samples, L) int32 tokens, BOS/EOS stripped."""
+        (num_samples, L) int32 tokens, BOS/EOS stripped.
+
+        Inpainting: with ``mask_ids`` (residues to generate) or
+        ``filled_ids`` (residues to keep, every other one generated),
+        ``structure_tokens`` (L+2,) with BOS/EOS (``ESM3Runtime.encode``)
+        is the prior; the other positions keep its tokens (the SUBS
+        carry-over).  ref_compat: mask TOKEN position ``idx`` of the
+        BOS-led row, i.e. residue ``idx - 1``, as the reference sampler
+        does; the default masks residue ``idx``."""
+        seq_rows, prior_rows, _, id_rows, lws = self._request_rows(
+            [sequence], [num_samples], [seed])
         if mask_ids is not None or filled_ids is not None:
-            raise NotImplementedError(
-                "ddpm inpainting needs the structure encoder, which is not "
-                "ported yet")
-        return self.ddpm_ensemble_multi(
-            [sequence], [num_samples], num_steps=num_steps, eps=eps,
-            seed=seed, sample_max_t=sample_max_t, budget=budget,
-            max_batch=max_batch)[0]
+            if structure_tokens is None:
+                raise ValueError("inpainting (mask_ids/filled_ids) needs the "
+                                 "prior's structure_tokens")
+            Lw = lws[0]
+            off = 0 if ref_compat else 1  # +1 maps residue idx -> token idx
+            prior = prior_rows[0]
+            prior[:Lw] = structure_tokens
+            if mask_ids is not None:
+                for idx in mask_ids:
+                    prior[idx + off] = C.STRUCTURE_MASK_TOKEN
+            else:
+                keep = set(filled_ids)
+                for idx in range(Lw - 2):
+                    if idx not in keep:
+                        prior[idx + off] = C.STRUCTURE_MASK_TOKEN
+            prior_rows[:] = prior
+        return self._ddpm(seq_rows, prior_rows, id_rows, lws, [num_samples],
+                          num_steps, eps, sample_max_t, budget, max_batch)[0]
 
     def ddpm_ensemble_multi(self, sequences: Sequence[str],
                             counts: Sequence[int], num_steps: int = 25,
@@ -284,6 +308,14 @@ class EnsembleSampler:
             seeds = [seed + i for i in range(len(sequences))]
         seq_rows, prior_rows, _, id_rows, lws = self._request_rows(
             sequences, counts, seeds)
+        return self._ddpm(seq_rows, prior_rows, id_rows, lws, counts,
+                          num_steps, eps, sample_max_t, budget, max_batch)
+
+    def _ddpm(self, seq_rows, prior_rows, id_rows, lws, counts, num_steps,
+              eps, sample_max_t, budget, max_batch) -> list[np.ndarray]:
+        """``MDLM.ddpm_sample`` over a same-bucket group's rows, from
+        ``prior_rows``, batch by batch: one interior-token array per
+        request."""
         Lpad = seq_rows.shape[1]
         dev = self.runtime.device
 
@@ -504,15 +536,13 @@ class EnsembleSampler:
 
         return forward
 
-    def _unmask(self, sequences: Sequence[str], counts: Sequence[int],
-                seeds: Sequence[int], budget: int, max_batch: Optional[int],
-                sample) -> list[np.ndarray]:
+    def _unmask(self, rows, counts: Sequence[int], budget: int,
+                max_batch: Optional[int], sample) -> list[np.ndarray]:
         """An unmasking sampler, ``sample(forward, uniforms, init,
-        dmask)``, over a same-bucket group of requests, batch by batch
-        through ``_trunk_forward``: one (counts[i], L_i) interior-token
-        array per request."""
-        seq_rows, init_rows, dmask_rows, id_rows, lws = self._request_rows(
-            sequences, counts, seeds)
+        dmask)``, over a same-bucket group's ``rows`` (``_request_rows``),
+        batch by batch through ``_trunk_forward``: one (counts[i], L_i)
+        interior-token array per request."""
+        seq_rows, init_rows, dmask_rows, id_rows, lws = rows
         Lpad = seq_rows.shape[1]
         dev = self.runtime.device
 
@@ -541,14 +571,35 @@ class EnsembleSampler:
                        budget: int = N_MAX_RESIDUE_SQUARE,
                        max_batch: Optional[int] = None) -> np.ndarray:
         """Iterative confidence-ranked unmasking with the (pretrained)
-        trunk: (num_samples, L) int32 structure tokens, BOS/EOS stripped."""
-        if mask_ids is not None or coordinates is not None:
-            raise NotImplementedError(
-                "gibbs inpainting (a coordinate prior) needs the structure "
-                "encoder, which is not ported yet")
-        return self.gibbs_ensemble_multi(
-            [sequence], [num_samples], config=config, seed=seed,
-            budget=budget, max_batch=max_batch)[0]
+        trunk: (num_samples, L) int32 structure tokens, BOS/EOS stripped.
+
+        coordinates: (L, 37, 3) atom37, NaN/inf where unknown: residues
+        with a finite backbone start at their encoded tokens and stay
+        fixed; only the others are decoded.  mask_ids: residues to
+        inpaint, which become '_' in the sequence and inf in the
+        coordinates (needs ``coordinates``)."""
+        if mask_ids is not None:
+            if coordinates is None:
+                raise ValueError("inpainting (mask_ids) needs coordinates")
+            masked = set(mask_ids)
+            sequence = "".join("_" if i in masked else ch
+                               for i, ch in enumerate(sequence))
+            coordinates = coordinates.copy()
+            coordinates[list(mask_ids)] = np.inf
+        rows = self._request_rows([sequence], [num_samples], [seed])
+        if coordinates is not None:
+            _, init_rows, dmask_rows, _, (Lw,) = rows
+            pt = self.runtime.encode(ESMProtein(sequence=sequence,
+                                                coordinates=coordinates))
+            # "known" on the backbone slots only: the unused atom37 slots
+            # are NaN for every residue
+            known = np.isfinite(coordinates[:, :3]).all(axis=(-1, -2))
+            init_rows[:, 1:Lw - 1] = np.where(known, pt.structure[1:-1],
+                                              C.STRUCTURE_MASK_TOKEN)
+            dmask_rows[:, 1:Lw - 1] = ~known
+
+        return self._unmask(rows, [num_samples], budget, max_batch,
+                            _gibbs_sample(config))[0]
 
     def gibbs_ensemble_multi(self, sequences: Sequence[str],
                              counts: Sequence[int],
@@ -564,13 +615,8 @@ class EnsembleSampler:
         if seeds is None:
             seeds = [seed + i for i in range(len(sequences))]
 
-        def sample(fwd, uniforms, init, dmask):
-            return iterative_unmask_sample(
-                fwd, uniforms, init, dmask, num_steps=config.num_steps,
-                temperature=config.temperature, top_p=config.top_p)
-
-        return self._unmask(sequences, counts, seeds, budget, max_batch,
-                            sample)
+        return self._unmask(self._request_rows(sequences, counts, seeds),
+                            counts, budget, max_batch, _gibbs_sample(config))
 
     def gibbs_ensemble_mixed(self, sequences: Sequence[str],
                              counts: Sequence[int],
@@ -615,8 +661,9 @@ class EnsembleSampler:
             self.eb_steps.append(steps)
             return toks
 
-        return self._unmask([sequence], [num_samples], [seed], budget,
-                            max_batch, sample)[0]
+        return self._unmask(
+            self._request_rows([sequence], [num_samples], [seed]),
+            [num_samples], budget, max_batch, sample)[0]
 
     # -- decode to proteins ---------------------------------------------------
     def decode_ensemble(self, sequence: str, tokens: np.ndarray,
@@ -649,6 +696,15 @@ class EnsembleSampler:
                 for (i, j, _, _), p in zip(chunk, prots):
                     results[i][j] = p
         return results
+
+
+def _gibbs_sample(config: GenerationConfig):
+    """The gibbs sampler as ``_unmask`` calls it."""
+    def sample(fwd, uniforms, init, dmask):
+        return iterative_unmask_sample(
+            fwd, uniforms, init, dmask, num_steps=config.num_steps,
+            temperature=config.temperature, top_p=config.top_p)
+    return sample
 
 
 def _pow2_at_least(n: int) -> int:

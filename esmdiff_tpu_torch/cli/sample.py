@@ -11,8 +11,10 @@ Modes (``--mode``, default gibbs as in JAX):
 
 ``--quant int8`` runs the trunk's projections in W8A8 int8; ``--refine``
 projects each decoded CA trace into the bond/clash validity band.
-Checkpoints, inpainting, profiling and data parallelism are not ported yet
-and raise.
+Inpainting: ``--mask_ids`` (residues to generate; ddpm and gibbs) or
+``--filled_ids`` (residues to keep; ddpm) condition the ensemble on the
+target's structure through the VQ-VAE encoder.  Checkpoints, profiling and
+data parallelism are not ported yet and raise.
 
     python -m esmdiff_tpu_torch.cli.sample --input data/targets/bpti \\
         --output output/torch --mode gibbs --num_steps 16 --num_samples 100
@@ -33,7 +35,7 @@ from esmdiff_tpu_torch.api.generation import EnsembleSampler, GenerationConfig
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
 from esmdiff_tpu_torch.core import protein as protein_io
 from esmdiff_tpu_torch.models.esm3 import ESM3Config, esm3_tiny
-from esmdiff_tpu_torch.models.vqvae import DecoderConfig
+from esmdiff_tpu_torch.models.vqvae import DecoderConfig, EncoderConfig
 from esmdiff_tpu_torch.ops.refine import refine_ca_ensemble
 
 
@@ -57,6 +59,8 @@ def build_runtime(args) -> ESM3Runtime:
     return ESM3Runtime.random_init(
         seed=args.seed,
         trunk_cfg=esm3_tiny(head_type=head, dtype="float32"),
+        encoder_cfg=EncoderConfig(d_model=64, n_heads=2, v_heads=8,
+                                  n_layers=2, d_out=16, knn=8),
         decoder_cfg=DecoderConfig(d_model=64, n_heads=2, n_layers=2,
                                   dtype="float32"),
         device=args.device, quant=args.quant)
@@ -78,12 +82,19 @@ def get_argparser():
                         "entropy-bounded unmasking.")
     p.add_argument("--num_steps", type=int, default=25)
     p.add_argument("--num_samples", type=int, default=10)
-    p.add_argument("--mask_ids", type=str, default=None)
-    p.add_argument("--filled_ids", type=str, default=None)
+    p.add_argument("--mask_ids", type=str, default=None,
+                   help="Comma-separated 0-based residue indices to "
+                        "inpaint (ddpm and gibbs).")
+    p.add_argument("--filled_ids", type=str, default=None,
+                   help="Comma-separated residue indices to KEEP, every "
+                        "other one generated (ddpm only).")
     p.add_argument("--temperature", type=float, default=1.4)
     p.add_argument("--top_p", type=float, default=0.9)
     p.add_argument("--entropy_budget", type=float, default=1.0)
-    p.add_argument("--ref_compat", action="store_true")
+    p.add_argument("--ref_compat", action="store_true",
+                   help="ddpm inpainting: mask TOKEN idx of the BOS-led "
+                        "row (residue idx-1), as the reference sampler "
+                        "does; the default masks residue idx.")
     p.add_argument("--quant", type=str, default="none",
                    choices=["none", "int8"],
                    help="int8 = W8A8 trunk projections (ops/quant.py).")
@@ -117,9 +128,7 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
     quantized, which raises on matmul weights held in bf16: build such a
     runtime with ``build_runtime`` or ``random_init(quant="int8")``."""
     args = get_argparser().parse_args(argv)
-    for flag, on in (("--mask_ids/--filled_ids",
-                      bool(args.mask_ids or args.filled_ids)),
-                     ("--profile", bool(args.profile)),
+    for flag, on in (("--profile", bool(args.profile)),
                      ("--data_parallel", args.data_parallel)):
         if on:
             _not_ported(flag)
@@ -139,6 +148,10 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
     if args.quant == "int8":
         print("[quant] trunk projections running W8A8 int8")
     sampler = EnsembleSampler(runtime, plan_policy=args.plan)
+    mask_ids = ([int(i) for i in args.mask_ids.split(",")]
+                if args.mask_ids else None)
+    filled_ids = ([int(i) for i in args.filled_ids.split(",")]
+                  if args.filled_ids else None)
 
     targets = []
     for dp in data_paths:
@@ -157,7 +170,8 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
         if args.skip_existing and out_file.exists():
             print(f"[{key}] exists, skipped (--skip_existing)")
             continue
-        seq = ESMProtein.from_pdb(path).sequence
+        prot = ESMProtein.from_pdb(path)
+        seq = prot.sequence
         _sync(runtime.device)
         t0 = time.time()
         if args.mode == "eb":
@@ -172,11 +186,18 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
                 config=GenerationConfig(num_steps=args.num_steps,
                                         temperature=args.temperature,
                                         top_p=args.top_p),
-                seed=args.seed, max_batch=args.max_batch)
+                seed=args.seed,
+                coordinates=prot.coordinates if mask_ids else None,
+                mask_ids=mask_ids, max_batch=args.max_batch)
         else:
+            structure_tokens = None
+            if mask_ids or filled_ids:
+                structure_tokens = runtime.encode(prot).structure
             tokens = sampler.ddpm_ensemble(
                 seq, args.num_samples, num_steps=args.num_steps,
-                seed=args.seed, max_batch=args.max_batch)
+                seed=args.seed, mask_ids=mask_ids, filled_ids=filled_ids,
+                structure_tokens=structure_tokens, max_batch=args.max_batch,
+                ref_compat=args.ref_compat)
         t_tokens = time.time() - t0
         prots = sampler.decode_ensemble(seq, tokens)
         if args.refine:

@@ -10,16 +10,15 @@ Endpoints (JSON over HTTP, stdlib only):
                      "mode": "gibbs"|"ddpm"|"eb" (default gibbs),
                      "num_steps": int (ddpm 25, else 16), "temperature":
                      float, "top_p": float, "entropy_budget": float (eb),
-                     "seed": int, "pdb": str (a sequence source),
+                     "seed": int, "pdb": str (a sequence source, and the
+                     inpainting prior), "mask_ids": [int] (residues to
+                     inpaint: gibbs, ddpm), "ref_compat": bool (ddpm),
                      "format": "pdb"|"tokens"}
                  -> {"pdb": str} | {"tokens": [[int], ...]}, plus timings
   POST /warmup   <- {"lengths": [int], "num_samples": int, "mode": str,
                      "num_steps": int, "packed_lengths": [int]}
                  -> seconds per warmed length (the first request at a shape
                     pays cuBLAS set-up and allocator growth)
-
-Inpainting (``mask_ids`` with a ``pdb`` prior, which needs the structure
-encoder) is not ported yet: a 400 says so.
 
 Device work is serialized per phase by two locks (trunk sampling, VQ
 decode), so request B's sampling can run behind request A's decode.
@@ -158,8 +157,7 @@ class SamplerService:
         return out
 
     def _parse(self, req: dict) -> dict:
-        """The JAX server's checks, in its order; then inpainting, which
-        the port does not run yet, is a RequestError too."""
+        """The JAX server's checks, in its order."""
         seq = req.get("sequence")
         prior_prot = None
         if req.get("pdb"):
@@ -211,28 +209,34 @@ class SamplerService:
             raise RequestError(
                 f"'sequence' length {len(seq)} != 'pdb' prior length "
                 f"{len(prior_prot.sequence)}")
-        if mask_ids is not None:
-            raise RequestError("inpainting (mask_ids with a 'pdb' prior) "
-                               "needs the structure encoder, which is not "
-                               "ported yet")
         return {"seq": seq, "mode": mode, "n": n, "steps": steps,
                 "seed": seed, "temperature": temperature, "top_p": top_p,
-                "fmt": fmt, "prior_prot": prior_prot,
+                "mask_ids": mask_ids, "fmt": fmt, "prior_prot": prior_prot,
+                "ref_compat": bool(req.get("ref_compat", False)),
                 "entropy_budget": float(req.get("entropy_budget", 1.0))}
 
     def _run_single(self, p: dict):
-        """Un-coalesced path (eb, a 'pdb' sequence source, --coalesce
-        off)."""
+        """Un-coalesced path (inpainting priors, eb, a 'pdb' sequence
+        source, --coalesce off)."""
+        mask_ids, prior_prot = p["mask_ids"], p["prior_prot"]
         with self._sample_lock:
             t_dev = time.time()  # sampling_sec = device phase, not queueing
             if p["mode"] == "gibbs":
                 tokens = self.sampler.gibbs_ensemble(
                     p["seq"], p["n"], config=_gibbs_config(p),
-                    seed=p["seed"], max_batch=self.max_batch)
+                    seed=p["seed"],
+                    coordinates=(prior_prot.coordinates
+                                 if mask_ids is not None else None),
+                    mask_ids=mask_ids, max_batch=self.max_batch)
             elif p["mode"] == "ddpm":
+                structure_tokens = None
+                if mask_ids is not None:
+                    structure_tokens = self.sampler.runtime.encode(
+                        prior_prot).structure
                 tokens = self.sampler.ddpm_ensemble(
                     p["seq"], p["n"], num_steps=p["steps"], seed=p["seed"],
-                    max_batch=self.max_batch)
+                    mask_ids=mask_ids, structure_tokens=structure_tokens,
+                    ref_compat=p["ref_compat"], max_batch=self.max_batch)
             else:
                 tokens = self.sampler.eb_ensemble(
                     p["seq"], p["n"], entropy_budget=p["entropy_budget"],

@@ -199,8 +199,11 @@ def from_pdb_string(
     pdb_str: str, chain_id: str | None = None, model: int | None = None
 ) -> Protein | list[Protein]:
     """Parse a PDB string.  Returns one Protein, or a list when the file has
-    multiple MODEL records and ``model`` is None."""
+    multiple MODEL records and ``model`` is None.  Raises ValueError when
+    the text holds no residue."""
     prots = _python_parse_models(pdb_str, chain_id)
+    if not prots:
+        raise ValueError("no residues in the PDB text")
     if model is not None:
         return prots[model]
     seen_model_rec = pdb_str.startswith("MODEL") or "\nMODEL" in pdb_str

@@ -1,10 +1,11 @@
 """ESM3 trunk in PyTorch (port of ``esmdiff_tpu/models/esm3.py``).
 
 Input-track embedding sum, pre-norm blocks (QK-layernorm + rotary attention,
-SwiGLU FFN, geometric attention in block 0), residuals scaled by
-1/sqrt(n_layers/36), final LayerNorm and swappable output heads.  The layers
-are a plain ``ModuleList`` (``blocks[i]`` is layer i) where JAX scans over
-stacked parameters; ``convert.py`` unstacks them.
+SwiGLU FFN, geometric attention in block 0 over frames built from input
+coordinates), residuals scaled by 1/sqrt(n_layers/36), final LayerNorm and
+swappable output heads.  The layers are a plain ``ModuleList``
+(``blocks[i]`` is layer i) where JAX scans over stacked parameters;
+``convert.py`` unstacks them.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from esmdiff_tpu_torch.core import constants as C
 from esmdiff_tpu_torch.device import torch_dtype
 from esmdiff_tpu_torch.nn.attention import sequence_id_mask
 from esmdiff_tpu_torch.nn.embed import EncodeInputs
-from esmdiff_tpu_torch.nn.geometric import GeometricAttention
+from esmdiff_tpu_torch.nn.geometric import (GeometricAttention,
+                                            build_affine3d_from_coordinates)
 from esmdiff_tpu_torch.nn.heads import (ESMOutput, OutputHeads,
                                         StructureOutputHeads)
 from esmdiff_tpu_torch.nn.layers import (LayerNorm, MultiHeadAttention,
@@ -34,6 +36,7 @@ class ESM3Config:
     n_layers: int = C.ESM3_N_LAYERS
     n_layers_geom: int = 1
     expansion_ratio: float = 8 / 3
+    mask_and_zero_frameless: bool = True
     # "esm3" = stock multi-track heads (4096-way structure); "structure" =
     # fine-tune replacement (4101-way + optional sequence head)
     head_type: str = "esm3"
@@ -74,10 +77,8 @@ def esm3_tiny(**overrides) -> ESM3Config:
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm block: attention + SwiGLU, residuals scaled by
-    1/sqrt(n_layers/36).  Block 0 owns geometric attention's parameters;
-    its compute runs only with coordinates, which the trunk does not take
-    yet (``ESM3.embed`` raises), so the block never calls it."""
+    """Pre-norm block: attention (+ geometric attention in the blocks that
+    own it) + SwiGLU, residuals scaled by 1/sqrt(n_layers/36)."""
 
     def __init__(self, cfg: ESM3Config, use_geom_attn: bool = False):
         super().__init__()
@@ -87,16 +88,24 @@ class TransformerBlock(nn.Module):
                                        attn_backend=cfg.attn_backend,
                                        qkv_backend=cfg.qkv_backend,
                                        quant=cfg.quant)
-        # owned, so checkpoints load strictly
-        self.geom_attn = (GeometricAttention(cfg.d_model, cfg.v_heads,
-                                             dtype=dt)
-                          if use_geom_attn else None)
+        self.geom_attn = (GeometricAttention(
+            cfg.d_model, cfg.v_heads,
+            mask_and_zero_frameless=cfg.mask_and_zero_frameless, dtype=dt)
+            if use_geom_attn else None)
         self.ffn = SwiGLUFFN(cfg.d_model, cfg.ffn_hidden, dtype=dt,
                              quant=cfg.quant)
 
-    def forward(self, x, rot_cos, rot_sin, mask=None, lengths=None):
+    def forward(self, x, rot_cos, rot_sin, mask=None, lengths=None,
+                affine=None, affine_mask=None, sequence_id=None,
+                chain_id=None, skip_geom: bool = False):
         x = x + self.attn(x, rot_cos, rot_sin, mask=mask,
                           lengths=lengths) / self.scale
+        if self.geom_attn is not None and not skip_geom:
+            if affine is None or affine_mask is None:
+                raise ValueError("geometric attention needs affine and "
+                                 "affine_mask (or skip_geom=True)")
+            x = x + self.geom_attn(x, affine, affine_mask, sequence_id,
+                                   chain_id) / self.scale
         return x + self.ffn(x) / self.scale
 
 
@@ -109,21 +118,34 @@ class TransformerStack(nn.Module):
             for i in range(cfg.n_layers))
         self.norm = LayerNorm(cfg.d_model)
 
-    def forward(self, x, sequence_id=None, lengths=None, positions=None):
+    def forward(self, x, sequence_id=None, affine=None, affine_mask=None,
+                chain_id=None, skip_geom: bool = False, lengths=None,
+                positions=None):
         """Returns (final-norm output, pre-norm output).
 
         Masking, as in ``nn/attention.py``: ``lengths`` (B,) = prefix
         padding (the kernel path); ``sequence_id`` (B, L) = packed segments,
         a block-diagonal mask (the plain path).  Passing both raises.
-        positions: rotary positions, (L,) or (B, L), for packed rows."""
+        positions: rotary positions, (L,) or (B, L), for packed rows.
+        affine, affine_mask, chain_id: the frames and chains of the blocks
+        that own geometric attention, which run it unless ``skip_geom``."""
         if sequence_id is not None and lengths is not None:
             raise ValueError("pass either sequence_id or lengths, not both")
         cfg = self.cfg
         rot_cos, rot_sin = rotary_tables(x.shape[1], cfg.d_model // cfg.n_heads,
                                          device=x.device, positions=positions)
         mask = sequence_id_mask(sequence_id)
+        if (sequence_id is None and lengths is not None
+                and cfg.n_layers_geom and not skip_geom):
+            # geometric attention keys off sequence_id; a prefix-length mask
+            # is the equivalent 0/1 id pattern
+            sequence_id = (torch.arange(x.shape[1], device=x.device)[None, :]
+                           < lengths.to(x.device)[:, None]).int()
         for block in self.blocks:
-            x = block(x, rot_cos, rot_sin, mask=mask, lengths=lengths)
+            x = block(x, rot_cos, rot_sin, mask=mask, lengths=lengths,
+                      affine=affine, affine_mask=affine_mask,
+                      sequence_id=sequence_id, chain_id=chain_id,
+                      skip_geom=skip_geom)
         return self.norm(x), x
 
 
@@ -148,15 +170,19 @@ class ESM3(nn.Module):
     def embed(self, structure_tokens=None, sequence_tokens=None,
               ss8_tokens=None, sasa_tokens=None, function_tokens=None,
               residue_annotation_tokens=None, average_plddt=None,
-              per_res_plddt=None, structure_coords=None,
+              per_res_plddt=None, structure_coords=None, chain_id=None,
               auxiliary_embeddings=None):
-        """Everything before the transformer stack -> (B, L, d_model)."""
-        if structure_coords is not None:
-            raise NotImplementedError(
-                "structure coordinates as trunk input (geometric attention) "
-                "are not ported yet")
+        """Everything before the transformer stack -> (x (B, L, d_model),
+        affine, affine_mask, chain_id, skip_geom).
+
+        structure_coords: optional (B, L, >=3, 3) coordinates whose first
+        three atoms are N, CA, C (NaN/inf where unknown); they become block
+        0's frames.  Without them every frame would be masked and geometric
+        attention an exact no-op, so ``skip_geom`` is set and the frames are
+        None."""
         ref = next(t for t in (sequence_tokens, structure_tokens, ss8_tokens,
-                               sasa_tokens) if t is not None)
+                               sasa_tokens, structure_coords)
+                   if t is not None)
         B, L = ref.shape[0], ref.shape[1]
         dev = ref.device
 
@@ -170,6 +196,7 @@ class ESM3(nn.Module):
                                        C.STRUCTURE_MASK_TOKEN)
         ss8_tokens = default_tok(ss8_tokens, C.SS8_PAD_TOKEN)
         sasa_tokens = default_tok(sasa_tokens, C.SASA_PAD_TOKEN)
+        chain_id = default_tok(chain_id, 0)
         if average_plddt is None:
             average_plddt = torch.ones((B, L), device=dev)
         if per_res_plddt is None:
@@ -179,6 +206,11 @@ class ESM3(nn.Module):
         residue_annotation_tokens = default_tok(
             residue_annotation_tokens, C.RESIDUE_PAD_TOKEN,
             (B, L, C.RESIDUE_ANNOTATION_DEPTH))
+        skip_geom = structure_coords is None
+        affine = affine_mask = None
+        if not skip_geom:
+            affine, affine_mask = build_affine3d_from_coordinates(
+                structure_coords[..., :3, :])
 
         # tie structure specials to the sequence specials
         st = structure_tokens
@@ -195,7 +227,7 @@ class ESM3(nn.Module):
                          residue_annotation_tokens)
         if auxiliary_embeddings is not None:
             x = x + auxiliary_embeddings.to(x.dtype)
-        return x
+        return x, affine, affine_mask, chain_id, skip_geom
 
     def forward(self, structure_tokens=None, sequence_tokens=None,
                 ss8_tokens=None, sasa_tokens=None, function_tokens=None,
@@ -204,19 +236,18 @@ class ESM3(nn.Module):
                 sequence_id=None, lengths=None, positions=None,
                 auxiliary_embeddings=None) -> ESMOutput:
         """The trunk's forward.  ``sequence_id``/``lengths``/``positions``
-        as in ``TransformerStack.forward``; ``chain_id`` is taken for JAX's
-        signature and used by geometric attention only, which runs with
-        coordinates and is not ported yet (``embed`` raises on them)."""
-        x = self.embed(
+        as in ``TransformerStack.forward``; ``structure_coords`` and
+        ``chain_id`` (default all 0) feed geometric attention."""
+        x, affine, affine_mask, chain_id, skip_geom = self.embed(
             structure_tokens=structure_tokens,
             sequence_tokens=sequence_tokens, ss8_tokens=ss8_tokens,
             sasa_tokens=sasa_tokens, function_tokens=function_tokens,
             residue_annotation_tokens=residue_annotation_tokens,
             average_plddt=average_plddt, per_res_plddt=per_res_plddt,
-            structure_coords=structure_coords,
+            structure_coords=structure_coords, chain_id=chain_id,
             auxiliary_embeddings=auxiliary_embeddings)
-        # no coordinates: every frame is masked and geometric attention is
-        # an exact no-op, so the stack skips it
-        x, embedding = self.transformer(x, sequence_id=sequence_id,
-                                        lengths=lengths, positions=positions)
+        x, embedding = self.transformer(
+            x, sequence_id=sequence_id, affine=affine,
+            affine_mask=affine_mask, chain_id=chain_id, skip_geom=skip_geom,
+            lengths=lengths, positions=positions)
         return self.output_heads(x, embedding)

@@ -1,8 +1,16 @@
-"""VQ-VAE structure-token decoder (port of the decoder half of
-``esmdiff_tpu/models/vqvae.py``): embeds 4101-way structure tokens, runs a
-30-layer / 1280-wide stack, and predicts backbone frames through a
-6D-rotation head; pLDDT from a 50-bin head, pTM from pairwise aligned-error
-logits.  The encoder waits for a later slice of the port."""
+"""VQ-VAE structure tokenizer: geometric encoder + transformer decoder (port
+of ``esmdiff_tpu/models/vqvae.py``).
+
+encoder — for every residue, its k nearest residues by CA distance form a
+local neighbourhood, encoded by a 2-layer stack whose only sequence
+features are relative-position embeddings (geometry enters through block
+0's geometric attention on the neighbours' frames); the centre residue's
+output is projected to ``d_out`` and quantized against the codebook.
+
+decoder — embeds 4101-way structure tokens, runs a 30-layer / 1280-wide
+stack, and predicts backbone frames through a 6D-rotation head; pLDDT from
+a 50-bin head, pTM from pairwise aligned-error logits.
+"""
 
 from __future__ import annotations
 
@@ -16,10 +24,126 @@ from torch import nn
 from esmdiff_tpu_torch.core import constants as C
 from esmdiff_tpu_torch.core import residue_constants as rc
 from esmdiff_tpu_torch.device import torch_dtype
+from esmdiff_tpu_torch.nn.geometric import (Affine3D,
+                                            build_affine3d_from_coordinates)
 from esmdiff_tpu_torch.nn.layers import Dense, Embed, LayerNorm, RegressionHead
 from .esm3 import ESM3Config, TransformerStack
 
 _IDEAL = np.stack([rc.IDEALIZED_N, rc.IDEALIZED_CA, rc.IDEALIZED_C])
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    d_model: int = 1024
+    n_heads: int = 1
+    v_heads: int = 128
+    n_layers: int = 2
+    d_out: int = 128
+    n_codes: int = C.VQVAE_CODEBOOK_SIZE
+    knn: int = 16
+    rel_pos_bins: int = 32
+    dtype: str = "float32"
+
+    def stack_config(self) -> ESM3Config:
+        # Plain attention, not the flash kernel: the stack's attention is
+        # one head of Dh = d_model (1024) in float32 over knn (16) keys,
+        # which JAX's "auto" also sends to its plain path (16 <
+        # _FLASH_MIN_LEN), and the kernel takes only Dh 64 in bf16.
+        return ESM3Config(d_model=self.d_model, n_heads=self.n_heads,
+                          v_heads=self.v_heads, n_layers=self.n_layers,
+                          n_layers_geom=1, dtype=self.dtype,
+                          attn_backend="xla")
+
+
+def knn_graph(ca, valid_mask, k: int):
+    """The k nearest residues by CA distance, self first, nearest first,
+    ties toward the lower index (as ``lax.top_k`` orders them; the stack
+    puts rotary positions on this axis, so the order is part of the
+    function).
+
+    ca: (B, L, 3); valid_mask: (B, L) bool -> (idx (B, L, k), neigh_valid
+    (B, L, k) bool).  Invalid neighbours map to the residue itself."""
+    d2 = ((ca[:, :, None, :] - ca[:, None, :, :]) ** 2).sum(dim=-1)
+    big = 1e9
+    pair_ok = valid_mask[:, :, None] & valid_mask[:, None, :]
+    d2 = torch.where(pair_ok, d2, big)
+    L = ca.shape[1]
+    eye = torch.eye(L, dtype=torch.bool, device=ca.device)[None]
+    d2 = torch.where(eye, -1.0, d2)
+    d_k, idx = torch.sort(d2, dim=-1, stable=True)
+    d_k, idx = d_k[..., :k], idx[..., :k]
+    neigh_valid = d_k < big / 2
+    self_idx = torch.arange(L, device=ca.device)[None, :, None]
+    return torch.where(neigh_valid, idx, self_idx), neigh_valid
+
+
+def nearest_code(z, codebook):
+    """(..., d) x (n, d) -> (...,) index of the nearest code: argmin of
+    |z|^2 - 2 z.c + |c|^2 in float32, the first index on ties."""
+    d2 = ((z * z).sum(dim=-1, keepdim=True) - 2.0 * (z @ codebook.t())
+          + (codebook * codebook).sum(dim=-1))
+    return d2.argmin(dim=-1)
+
+
+class StructureTokenEncoder(nn.Module):
+    def __init__(self, cfg: EncoderConfig = EncoderConfig()):
+        super().__init__()
+        self.cfg = cfg
+        dt = torch_dtype(cfg.dtype)
+        self.relative_position_embed = Embed(2 * cfg.rel_pos_bins + 2,
+                                             cfg.d_model, dtype=dt)
+        self.transformer = TransformerStack(cfg.stack_config())
+        self.pre_vq_proj = Dense(cfg.d_model, cfg.d_out, dtype=dt)
+        self.codebook = nn.Parameter(torch.empty(cfg.n_codes, cfg.d_out))
+
+    def forward(self, coords, residue_index=None, valid_mask=None,
+                return_zq: bool = False):
+        """coords: (B, L, 3, 3) N/CA/C (NaN/inf where unknown) -> (tokens
+        (B, L) int64, z (B, L, d_out), valid (B, L) bool); invalid
+        positions get STRUCTURE_MASK_TOKEN.
+
+        return_zq=True also returns z_q = codebook[nearest code] (float32,
+        (B, L, d_out)) for VQ-VAE training; invalid positions carry a code
+        there too and must be masked by the caller through ``valid``."""
+        cfg = self.cfg
+        B, L = coords.shape[:2]
+        K = min(cfg.knn, L)
+        affine, affine_ok = build_affine3d_from_coordinates(coords)
+        valid_mask = (affine_ok if valid_mask is None
+                      else valid_mask & affine_ok)
+        if residue_index is None:
+            residue_index = torch.arange(L, device=coords.device).expand(B, L)
+
+        idx, neigh_ok = knn_graph(affine.trans, valid_mask, K)
+        b = torch.arange(B, device=coords.device)[:, None, None]
+        rot_n, trans_n = affine.rot[b, idx], affine.trans[b, idx]
+        rel = (residue_index[b, idx] - residue_index[:, :, None]).clamp(
+            -cfg.rel_pos_bins, cfg.rel_pos_bins) + cfg.rel_pos_bins
+        # invalid neighbours get a bucket of their own
+        rel = torch.where(neigh_ok, rel, 2 * cfg.rel_pos_bins + 1)
+        s = self.relative_position_embed(rel)          # (B, L, K, d)
+
+        # the neighbourhoods fold into the batch axis: (B * L, K, ...)
+        x, _ = self.transformer(
+            s.reshape(B * L, K, cfg.d_model),
+            affine=Affine3D(rot=rot_n.reshape(B * L, K, 3, 3),
+                            trans=trans_n.reshape(B * L, K, 3)),
+            affine_mask=neigh_ok.reshape(B * L, K))
+        z = self.pre_vq_proj(x[:, 0, :].reshape(B, L, cfg.d_model))
+        raw = nearest_code(z.float(), self.codebook.float())
+        tokens = torch.where(valid_mask, raw, C.STRUCTURE_MASK_TOKEN)
+        if return_zq:
+            return tokens, z, valid_mask, self.codebook.float()[raw]
+        return tokens, z, valid_mask
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

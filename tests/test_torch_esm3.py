@@ -60,9 +60,16 @@ def test_trunk_structure_logits():
                                np.asarray(ref.structure_logits), atol=ATOL)
     np.testing.assert_allclose(to_np(out.embeddings),
                                np.asarray(ref.embeddings), atol=ATOL)
-    with pytest.raises(NotImplementedError):
-        tm(sequence_tokens=torch.from_numpy(seq),
-           structure_coords=torch.zeros(B, L, 3, 3))
+    # coordinates reach block 0's geometric attention, as in JAX (the
+    # frames of all-zero coordinates are degenerate but finite)
+    zeros = np.zeros((B, L, 3, 3), np.float32)
+    ref = jm.apply({"params": params}, sequence_tokens=jnp.asarray(seq),
+                   structure_coords=jnp.asarray(zeros))
+    with torch.no_grad():
+        out = tm(sequence_tokens=torch.from_numpy(seq),
+                 structure_coords=torch.from_numpy(zeros))
+    np.testing.assert_allclose(to_np(out.structure_logits),
+                               np.asarray(ref.structure_logits), atol=ATOL)
 
 
 @pytest.mark.parametrize("with_lengths", [False, True])

@@ -17,13 +17,14 @@ from esmdiff_tpu.models.vqvae import DecoderConfig as JDecoderConfig
 from esmdiff_tpu.models.vqvae import EncoderConfig as JEncoderConfig
 from esmdiff_tpu_torch.api.generation import (EnsembleSampler,
                                               GenerationConfig, plan_batches)
-from esmdiff_tpu_torch.api.protein_api import ESM3Runtime
+from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
 from esmdiff_tpu_torch.cli import sample as cli
 from esmdiff_tpu_torch.models.esm3 import ESM3, esm3_tiny
 from esmdiff_tpu_torch.models.vqvae import DecoderConfig, StructureTokenDecoder
 from esmdiff_tpu_torch.nn.layers import TimestepEmbedder
 from esmdiff_tpu_torch.ops.packing import pack_factor
-from test_torch_support import carry, jax_request_uniform_factory
+from test_torch_support import (carry, carry_encoder,
+                                jax_request_uniform_factory)
 
 torch.set_num_threads(2)
 
@@ -48,7 +49,7 @@ def samplers():
         carry(StructureTokenDecoder(DecoderConfig(**dec_kw)),
               jrt.decoder_params),
         carry(TimestepEmbedder(64, dtype=torch.float32), jrt.sigma_params),
-        device="cpu")
+        device="cpu", encoder=carry_encoder(jrt))
     return (JSampler(jrt),
             EnsembleSampler(rt, uniform_factory=jax_request_uniform_factory))
 
@@ -108,10 +109,26 @@ def test_eb_ensemble_matches_jax(samplers):
 
 
 def test_gibbs_prior_is_not_ported(samplers):
-    _, ts = samplers
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ts.gibbs_ensemble(SEQ_SHORT, 2, mask_ids=[1, 2],
-                          coordinates=np.zeros((10, 37, 3), np.float32))
+    """The gibbs coordinate prior is ported: mask_ids without coordinates
+    raises (JAX asserts), and a prior with two residues to inpaint gives
+    JAX's tokens, the other eight fixed at their encoded codes."""
+    js, ts = samplers
+    with pytest.raises(ValueError, match="needs coordinates"):
+        ts.gibbs_ensemble(SEQ_SHORT, 2, mask_ids=[1, 2])
+    rng = np.random.default_rng(0)
+    coords = np.full((10, 37, 3), np.nan, np.float32)
+    coords[:, :3] = np.cumsum(rng.standard_normal((10, 3, 3)) * 2.0, axis=0)
+    cfg = dict(num_steps=4, temperature=1.4, top_p=0.9)
+    ref = js.gibbs_ensemble(SEQ_SHORT, 2, config=JConfig(**cfg), seed=1,
+                            coordinates=coords, mask_ids=[1, 2])
+    got = ts.gibbs_ensemble(SEQ_SHORT, 2, config=GenerationConfig(**cfg),
+                            seed=1, coordinates=coords, mask_ids=[1, 2])
+    np.testing.assert_array_equal(got, ref)
+    keep = [i for i in range(10) if i not in (1, 2)]
+    prior = coords.copy()
+    prior[[1, 2]] = np.inf
+    enc = ts.runtime.encode(ESMProtein("M__AYIAKQR", prior)).structure[1:-1]
+    np.testing.assert_array_equal(got[:, keep], np.tile(enc[keep], (2, 1)))
 
 
 def _pdb_counts(path):

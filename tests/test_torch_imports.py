@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime
+from esmdiff_tpu_torch.cli import dump as dump_cli
 from esmdiff_tpu_torch.cli import sample as cli
 from esmdiff_tpu_torch.cli import serve as serve_cli
 from esmdiff_tpu_torch.models.esm3 import esm3_tiny
@@ -40,18 +41,23 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 34  # every module was imported
+    assert int(res.stdout.split()[-1]) >= 35  # every module was imported
 
 
 def test_serving_modules_import_without_jax():
-    """The serving and sampler slices' modules by name (the walk above
-    covers them as well): the int8 path, packing, the server, the gibbs
-    and eb samplers and refinement."""
+    """The serving, sampler and encode slices' modules by name (the walk
+    above covers them as well): the int8 path, packing, the server, the
+    gibbs and eb samplers, refinement, geometric attention, the encoder
+    and the dump CLI."""
     probe = ("import sys\nsys.modules['jax'] = None\n"
              "sys.modules['flax'] = None\n"
              "import esmdiff_tpu_torch.ops.quant, esmdiff_tpu_torch.ops.packing"
              ", esmdiff_tpu_torch.cli.serve, esmdiff_tpu_torch.ops.refine"
-             ", esmdiff_tpu_torch.diffusion.gibbs\n"
+             ", esmdiff_tpu_torch.diffusion.gibbs"
+             ", esmdiff_tpu_torch.nn.geometric, esmdiff_tpu_torch.models.vqvae"
+             ", esmdiff_tpu_torch.cli.dump\n"
+             "from esmdiff_tpu_torch.models.vqvae import "
+             "StructureTokenEncoder, knn_graph, nearest_code\n"
              "assert not [m for m in sys.modules if m.startswith("
              "'esmdiff_tpu.')]\n")
     res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
@@ -96,11 +102,17 @@ def test_server_without_device_raises(no_cuda):
 
 
 def test_unported_modes_raise(tmp_path):
-    for extra in (["--filled_ids", "1,2"], ["--data_parallel"],
-                  ["--mask_ids", "1,2"]):
+    """What stays unported raises: checkpoints, profiling and data
+    parallelism (inpainting, --mask_ids/--filled_ids, is ported:
+    tests/test_torch_inpaint.py)."""
+    for extra in (["--ckpt", "trunk.pt"], ["--data_parallel"],
+                  ["--profile", str(tmp_path / "trace")]):
         with pytest.raises(NotImplementedError, match="not ported"):
             cli.main(["--output", str(tmp_path), "--model_scale", "tiny",
                       "--device", "cpu", *extra])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        dump_cli.main([str(ROOT / "data/targets/bpti"), str(tmp_path),
+                       "--ckpt", "trunk.pt", "--device", "cpu"])
     for extra in (["--ckpt", "trunk.pt"], ["--data_parallel"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             serve_cli.main(["--model_scale", "tiny", "--device", "cpu",

@@ -372,3 +372,41 @@ def test_unmask_samplers_on_card(gen, mode):
     assert fa.launches - before == 2 * steps
     again, _ = run()
     assert (again == toks).all()
+
+
+def test_encoder_card_matches_cpu(gen):
+    """The full-width structure encoder (float32; its attention takes the
+    plain path by its config) on the card against its CPU copy on BPTI:
+    no flash launch, z within 1e-4 relative L2, tokens equal except where
+    the two nearest codes lie within 1e-5 relative distance."""
+    import copy
+    from pathlib import Path
+
+    from esmdiff_tpu_torch.api.protein_api import ESMProtein
+    from esmdiff_tpu_torch.models.vqvae import (EncoderConfig,
+                                                StructureTokenEncoder)
+    from esmdiff_tpu_torch.nn.layers import init_params
+
+    with torch.device("cuda"):
+        enc = StructureTokenEncoder(EncoderConfig())
+    init_params(enc, gen)
+    with torch.no_grad():
+        enc.codebook.normal_(0.0, 1.0, generator=gen)
+    cpu = copy.deepcopy(enc).cpu()
+    bb = torch.as_tensor(ESMProtein.from_pdb(
+        Path(__file__).resolve().parents[1] / "data/targets/bpti/bpti.pdb"
+    ).backbone()[None], dtype=torch.float32)
+    before = fa.launches
+    with torch.no_grad():
+        tokens, z, valid = enc(bb.cuda())
+        ref_tokens, ref_z, ref_valid = cpu(bb)
+    torch.cuda.synchronize()
+    assert fa.launches == before
+    assert torch.equal(valid.cpu(), ref_valid) and ref_valid.all()
+    rel = ((z.cpu() - ref_z).norm() / ref_z.norm()).item()
+    assert rel <= 1e-4, rel
+    d = torch.cdist(ref_z[0].double(), cpu.codebook.double())
+    two = d.topk(2, dim=-1, largest=False).values
+    near_tie = (two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 0]
+    differ = tokens.cpu()[0] != ref_tokens[0]
+    assert not (differ & ~near_tie).any()

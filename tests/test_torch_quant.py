@@ -20,7 +20,7 @@ from esmdiff_tpu_torch.api.protein_api import ESM3Runtime
 from esmdiff_tpu_torch.cli import sample as cli
 from esmdiff_tpu_torch.convert import load_flax_params
 from esmdiff_tpu_torch.models import esm3 as tesm3
-from esmdiff_tpu_torch.models.vqvae import DecoderConfig
+from esmdiff_tpu_torch.models.vqvae import DecoderConfig, EncoderConfig
 from esmdiff_tpu_torch.nn.layers import MultiHeadAttention
 from esmdiff_tpu_torch.ops import quant
 from test_torch_support import carry, perturb, to_np
@@ -176,17 +176,22 @@ def _tiny_runtime(**kw):
         seed=0, trunk_cfg=tesm3.esm3_tiny(head_type="structure",
                                           dtype="float32"),
         decoder_cfg=DecoderConfig(d_model=64, n_heads=2, n_layers=2,
-                                  dtype="float32"), device="cpu", **kw)
+                                  dtype="float32"),
+        encoder_cfg=EncoderConfig(d_model=64, n_heads=2, v_heads=8,
+                                  n_layers=2, d_out=16, knn=8),
+        device="cpu", **kw)
 
 
 def test_runtime_quantize():
     """quantize() swaps the trunk (trunk only by default, the decoder with
-    include_decoder) and shares the rest; random_init(quant="int8")
-    quantizes the same float32 weights."""
+    include_decoder) and shares the rest, the float32 encoder too;
+    random_init(quant="int8") quantizes the same float32 weights."""
     rt = _tiny_runtime()
     q = rt.quantize("int8")
     assert q.trunk.cfg.quant == "int8" and q.trunk.cfg.qkv_backend == "xla"
     assert q.decoder is rt.decoder and q.sigma_embedder is rt.sigma_embedder
+    assert q.encoder is rt.encoder
+    assert {p.dtype for p in q.encoder.parameters()} == {torch.float32}
     assert isinstance(q.trunk.transformer.blocks[0].ffn.up, quant.QuantDense)
     assert q.trunk.transformer.blocks[0].attn.ln.scale is None
     direct = _tiny_runtime(quant="int8").trunk.state_dict()

@@ -32,7 +32,8 @@ from esmdiff_tpu_torch.api.protein_api import ESM3Runtime
 from esmdiff_tpu_torch.cli import serve as serve_cli
 from esmdiff_tpu_torch.cli.serve import RequestError, SamplerService, serve
 from esmdiff_tpu_torch.models.esm3 import ESM3, esm3_tiny
-from esmdiff_tpu_torch.models.vqvae import DecoderConfig, StructureTokenDecoder
+from esmdiff_tpu_torch.models.vqvae import (DecoderConfig, EncoderConfig,
+                                            StructureTokenDecoder)
 from esmdiff_tpu_torch.nn.layers import TimestepEmbedder
 from test_torch_support import (carry, jax_request_noise_factory,
                                 jax_request_uniform_factory)
@@ -150,6 +151,8 @@ def server():
         seed=1, trunk_cfg=esm3_tiny(head_type="structure", dtype="float32"),
         decoder_cfg=DecoderConfig(d_model=64, n_heads=2, n_layers=2,
                                   dtype="float32"),
+        encoder_cfg=EncoderConfig(d_model=64, n_heads=2, v_heads=8,
+                                  n_layers=2, d_out=16, knn=8),
         device="cpu", quant="int8")
     service = SamplerService(EnsembleSampler(runtime), max_samples=16)
     httpd = serve(service, host="127.0.0.1", port=0)
@@ -237,19 +240,25 @@ def test_request_parse_matches_jax(server, jax_service):
 
 
 def test_http_errors_and_unported(server):
-    """What stays unported: inpainting (a 'pdb' prior with mask_ids, in
-    gibbs and ddpm) is a 400, ``--data_parallel`` raises."""
+    """Errors over HTTP, and what stays unported: a bad residue, eb with
+    ``mask_ids`` and ``mask_ids`` without a 'pdb' prior are 400s (as in
+    JAX), inpainting with a 'pdb' prior runs in gibbs and ddpm (200),
+    ``--data_parallel`` raises."""
     base, _ = server
     pdb = open(BPTI_PDB).read()
     for payload, frag in [
             ({"sequence": "X1"}, "invalid residue"),
-            ({"pdb": pdb, "mask_ids": [1, 2]}, "not ported yet"),
-            ({"pdb": pdb, "mode": "ddpm", "mask_ids": [1, 2]},
-             "not ported yet"),
+            ({"sequence": "MKT", "mask_ids": [1]}, "needs a 'pdb' prior"),
             ({"pdb": pdb, "mode": "eb", "mask_ids": [1]},
              "eb mode does not support inpainting")]:
         status, body = _post(base + "/sample", payload)
         assert status == 400 and frag in body["error"], (payload, body)
+    for mode in ("gibbs", "ddpm"):
+        status, body = _post(base + "/sample", {
+            "pdb": pdb, "mode": mode, "mask_ids": [1, 2], "num_samples": 2,
+            "num_steps": 2, "format": "tokens"})
+        assert status == 200, body
+        assert np.asarray(body["tokens"]).shape == (2, 58)
     status, body = _post(base + "/sample", [1, 2, 3])
     assert status == 400 and "JSON object" in body["error"]
     assert _post(base + "/nope", {})[0] == 404

@@ -5,6 +5,8 @@ function and its counterpart in ``esmdiff_tpu_torch``; weights travel from
 ``jax.device_get`` of the flax params through ``esmdiff_tpu_torch.convert``.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +41,16 @@ def perturb(tree, seed: int = 0, scale: float = 0.1):
 def carry(torch_module, flax_params):
     """Load flax params into a float32 CPU torch module, strictly."""
     return load_flax_params(torch_module.float(), jax.device_get(flax_params))
+
+
+def carry_encoder(jrt):
+    """The port's structure encoder, carried over from a JAX
+    ``ESM3Runtime``'s (same config fields)."""
+    from esmdiff_tpu_torch.models.vqvae import (EncoderConfig,
+                                                StructureTokenEncoder)
+
+    cfg = EncoderConfig(**dataclasses.asdict(jrt.encoder.cfg))
+    return carry(StructureTokenEncoder(cfg), jrt.encoder_params)
 
 
 def jax_ddpm_draws(row_keys, L: int, V: int):
