@@ -82,7 +82,22 @@ Phases, each of which fails loudly (no error is caught):
      multi-MODEL PDBs; eb with mask_ids a 400); cli.dump of BPTI with
      embeddings (its structure tokens equal the runtime's encode); encode
      ms per target on a warm process;
-  8. print the card, each path's numbers, the kernels line, and as the last
+  8. the train path: the port's cli.dump writes a corpus of every chain
+     under data/targets/{apo,codnas,ped} through the full-width encoder;
+     esmdiff-torch-train --config configs/mdlm.yaml on it at full width
+     (1.4B trunk, float32 master weights, bf16 compute, remat, AdamW lr
+     1e-5, batch 16, max_len 512): one unpacked epoch (data.pack_len=0:
+     every trunk layer on the flash kernel, exact launches per train step
+     and eval batch; warm ms per step, tokens/s, the bf16-peak share,
+     peak memory, the save's seconds and size; the parameters moved) and
+     one epoch of the shipped packed config (6 steps on this corpus;
+     flash 0: packed rows take the plain masked path); one train step's forward and backward
+     through the kernel against the trunk with attn_backend="xla" (logits,
+     whole gradient and three parameters' gradients within twice the
+     spread of two plain roundings); cli.sample --ckpt on the unpacked
+     run (trunk parameters equal the saved ones bit for bit, a finite
+     8-MODEL PDB of BPTI);
+  9. print the card, each path's numbers, the kernels line, and as the last
      line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA card or without the
 rest of the repo beside it.
@@ -407,9 +422,10 @@ def kernel_vs_plain(torch, runtime, kernel, plain, other,
     return rel(logits[0], logits[1]), rel(logits[2], logits[1])
 
 
-def path_launches(trunk_cfg, dec_layers, lw, fused, forwards=None):
-    """Each kernel's launches for one target's request through the CLI
-    (plan "single"), from its plan: ``forwards[i]`` trunk forwards for
+def path_launches(trunk_cfg, dec_layers, lw, fused, forwards=None,
+                  num_samples=NUM_SAMPLES):
+    """Each kernel's launches for one target's request of ``num_samples``
+    through the CLI (plan "single"), from its plan: ``forwards[i]`` trunk forwards for
     batch i (ddpm: NUM_STEPS + 1 each), each layer's attention on the
     kernel only where the batch's pack factor is 1 (packed rows take the
     plain masked path), and one decoder launch per layer and decode
@@ -417,13 +433,13 @@ def path_launches(trunk_cfg, dec_layers, lw, fused, forwards=None):
     from esmdiff_tpu_torch.api.generation import bucket_length, plan_batches
     from esmdiff_tpu_torch.ops.packing import pack_factor
 
-    plan = plan_batches(lw, NUM_SAMPLES, policy="single")
+    plan = plan_batches(lw, num_samples, policy="single")
     if forwards is None:
         forwards = [NUM_STEPS + 1] * len(plan)
     layers = trunk_cfg.n_layers
     unpacked = layers * sum(f for b, f in zip(plan, forwards)
                             if pack_factor(b, bucket_length(lw)) == 1)
-    decoder = dec_layers * -(-NUM_SAMPLES // DECODE_BATCH)
+    decoder = dec_layers * -(-num_samples // DECODE_BATCH)
     if not fused:
         return {"flash_attention": unpacked + decoder, "small_attention": 0,
                 "fused_qkv": 0, "fused_ffn": 0}
@@ -1086,20 +1102,21 @@ def serve_path(torch, runtime, ops, card, gen):
 
 
 @contextlib.contextmanager
-def recorded(cls, name):
-    """Keeps what ``cls.name`` returns while the block runs (the tokens the
-    CLI samples, for the prior gate); the call itself is unchanged."""
-    orig, outputs = getattr(cls, name), []
+def recorded(owner, name):
+    """Keeps what ``owner.name`` (a method or a module's function) returns
+    while the block runs (the tokens the CLI samples, for the prior gate;
+    the runtime ``--ckpt`` loads); the call itself is unchanged."""
+    orig, outputs = getattr(owner, name), []
 
-    def keep(sampler, *args, **kwargs):
-        outputs.append(orig(sampler, *args, **kwargs))
+    def keep(*args, **kwargs):
+        outputs.append(orig(*args, **kwargs))
         return outputs[-1]
 
-    setattr(cls, name, keep)
+    setattr(owner, name, keep)
     try:
         yield outputs
     finally:
-        setattr(cls, name, orig)
+        setattr(owner, name, orig)
 
 
 def prior_kept(tokens, prior, C):
@@ -1359,6 +1376,354 @@ def inpaint_path(torch, runtime, stock_rt, ops, target_dirs, lws, card):
                  dump_launches}}, launches
 
 
+@contextlib.contextmanager
+def stepped(torch, module, name, fa, out):
+    """Wraps ``module.name`` (the trainer's train or eval step) while the
+    block runs: each call is synchronised before and after, and its ms,
+    flash launches, batch tokens (real, padded), loss and grad norm are
+    appended to ``out``; the call itself is unchanged."""
+    orig = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        batch = next(a for a in args if isinstance(a, dict))
+        torch.cuda.synchronize()
+        before, t0 = fa.launches, time.perf_counter()
+        metrics = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        out.append({"ms": 1e3 * (time.perf_counter() - t0),
+                    "flash": fa.launches - before,
+                    "real_tokens": int(batch["mask"].sum().item()),
+                    "padded_tokens": batch["mask"].numel(),
+                    "shape": list(batch["mask"].shape),
+                    "loss": float(metrics["loss"]),
+                    "grad_norm": float(metrics.get("grad_norm",
+                                                   float("nan")))})
+        return metrics
+
+    setattr(module, name, wrapped)
+    try:
+        yield out
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def timed_saves(torch, manager_cls, out):
+    """Wraps ``CheckpointManager.save``: free disk before each save, its
+    seconds and the bytes it wrote are appended to ``out``."""
+    orig = manager_cls.save
+
+    def save(self, state, step, metric):
+        torch.cuda.synchronize()
+        free = shutil.disk_usage(self.dir).free
+        t0 = time.perf_counter()
+        orig(self, state, step, metric)
+        out.append({"free_disk_gib_before": free / 2**30,
+                    "save_s": time.perf_counter() - t0,
+                    "save_gib": sum(f.stat().st_size for f in (
+                        self.dir / f"step_{step}").iterdir()) / 2**30})
+
+    manager_cls.save = save
+    try:
+        yield out
+    finally:
+        manager_cls.save = orig
+
+
+def train_run(torch, fa, overrides, run_dir, n_dense):
+    """One ``esmdiff-torch-train --config configs/mdlm.yaml`` run on the
+    card with ``overrides``: (numbers, the train steps' records, the eval
+    batches' records, failures).  The first train step is off the clock."""
+    from esmdiff_tpu_torch.cli import train as train_cli
+    from esmdiff_tpu_torch.train import state as tstate
+    from esmdiff_tpu_torch.utils.checkpoint import CheckpointManager
+
+    steps, evals, saves, failures = [], [], [], []
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with stepped(torch, tstate, "train_step", fa, steps), \
+            stepped(torch, tstate, "eval_step", fa, evals), \
+            timed_saves(torch, CheckpointManager, saves):
+        result = train_cli.main([
+            "--config", str(ROOT / "configs/mdlm.yaml"), *overrides,
+            f"trainer.ckpt_dir={run_dir}", "trainer.print_config=false"])
+    wall = time.time() - t0
+    warm = steps[1:]
+    warm_s = sum(r["ms"] for r in warm) / 1e3
+    padded = sum(r["padded_tokens"] for r in warm)
+    numbers = {
+        "overrides": overrides, "steps": result["steps"], "wall_s": wall,
+        "first_step_ms": steps[0]["ms"],
+        "warm_ms_per_step": 1e3 * warm_s / len(warm),
+        "real_tokens_per_s": sum(r["real_tokens"] for r in warm) / warm_s,
+        "padded_tokens_per_s": padded / warm_s,
+        # the trunk's products at 8 x params x padded tokens: forward 2,
+        # backward 4, remat's recomputed forward 2 (attention not counted)
+        "bf16_peak_share": 8 * n_dense * padded / warm_s / H100_BF16_FLOPS,
+        "batch_shapes": [r["shape"] for r in steps],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "resident_gib_before": resident / 2**30,
+        "flash_per_train_step": sorted({r["flash"] for r in steps}),
+        "flash_per_eval_batch": sorted({r["flash"] for r in evals}),
+        "losses": [r["loss"] for r in steps],
+        "grad_norms": [r["grad_norm"] for r in steps],
+        "val_loss": result["best_val_loss"], "eval_batches": len(evals),
+        "saves": saves}
+    finite = [*numbers["losses"], *numbers["grad_norms"],
+              numbers["val_loss"]]
+    if not all(math.isfinite(x) for x in finite) or len(steps) < 2:
+        failures.append(f"{overrides}: non-finite loss or grad norm, or "
+                        f"fewer than 2 steps: {finite}")
+    if len(saves) != 1:
+        failures.append(f"{overrides}: {len(saves)} saves, expected 1")
+    return numbers, steps, evals, failures
+
+
+def train_kernel_vs_plain(torch, fa, corpus, failures):
+    """One unpacked train step's forward and backward at full width on one
+    batch with the same draws, three times: the kernel (flash), its plain
+    version (p cast before normalising), and the trunk with
+    ``attn_backend="xla"`` (JAX's XLA rounding).  Gated, for the structure
+    logits, the whole gradient and the first and last ``attn.qkv`` and the
+    last ``ffn.down`` gradients: rel L2 of kernel vs xla within twice
+    that of the two plain roundings; the loss's relative change within
+    twice the logits' floor, the grad norm's within twice the gradient's
+    (the triangle inequality bounds it by the gradient's rel L2)."""
+    from esmdiff_tpu_torch.diffusion.mdlm import GeneratorDraws
+    from esmdiff_tpu_torch.train import data as data_mod
+    from esmdiff_tpu_torch.train.config import load_config
+    from esmdiff_tpu_torch.train.loop import (build_task, init_params,
+                                              mdlm_modules, to_device)
+
+    cfg = load_config(str(ROOT / "configs/mdlm.yaml"),
+                      [f"data.path={corpus}", "data.pack_len=0"])
+    mdlm, loss_fn = build_task(cfg, "cuda")
+    init_params(mdlm, cfg)
+    modules = mdlm_modules(mdlm)
+    split, _ = data_mod.train_val_split(
+        data_mod.EncodingDataset(cfg.data), cfg.data)
+    batch = to_device(next(data_mod.batches(split, cfg.data, shuffle=True,
+                                            seed=cfg.seed)), "cuda")
+    L = mdlm.net.cfg.n_layers
+    named = [f"net.transformer.blocks.{i}.{leaf}" for i, leaf in (
+        (0, "attn.qkv.weight"), (L - 1, "attn.qkv.weight"),
+        (L - 1, "ffn.down.weight"))]
+    params = dict(modules.named_parameters())
+    captured = {}
+    hook = mdlm.net.output_heads.register_forward_hook(
+        lambda m, i, out: captured.update(logits=out.structure_logits))
+
+    def run(flash, backend):
+        for block in mdlm.net.transformer.blocks:
+            block.attn.attn_backend = backend
+        saved, fa.flash_attention = fa.flash_attention, flash
+        before = fa.launches
+        try:
+            modules.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                loss, _ = loss_fn(batch, GeneratorDraws("cuda", seed=0))
+                loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            fa.flash_attention = saved
+        return loss.item(), captured.pop("logits").float(), \
+            fa.launches - before
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    t0 = time.time()
+    ref_loss, ref_logits, ref_launches = run(fa.flash_attention, "xla")
+    ref = {n: p.grad.clone() for n, p in params.items()
+           if p.grad is not None}
+    out = {}
+    for key, flash in (("kernel", fa.flash_attention),
+                       ("plain_version", fa.flash_attention_reference)):
+        loss, logits, launches = run(flash, "auto")
+        diff2 = norm2 = 0.0
+        for n, g in ref.items():
+            diff2 += (params[n].grad - g).float().norm().item() ** 2
+            norm2 += g.float().norm().item() ** 2
+        gnorm = math.sqrt(sum(p.grad.float().norm().item() ** 2
+                              for p in params.values()
+                              if p.grad is not None))
+        out[key] = {
+            "loss": loss, "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+            "grad_norm": gnorm, "grad_norm_rel":
+                abs(gnorm - math.sqrt(norm2)) / math.sqrt(norm2),
+            "logits_rel_l2": rel(logits, ref_logits),
+            "grad_rel_l2": math.sqrt(diff2 / norm2),
+            **{f"{n}_rel_l2": rel(params[n].grad, ref[n]) for n in named},
+            "flash_launches": launches}
+    hook.remove()
+    k, floor = out["kernel"], out["plain_version"]
+    for name in ("logits_rel_l2", "grad_rel_l2",
+                 *(f"{n}_rel_l2" for n in named)):
+        if not k[name] <= 2 * floor[name]:
+            failures.append(f"train step, kernel vs xla: {name} {k[name]} "
+                            f"> 2 x the plain roundings' {floor[name]}")
+    for name, limit in (("loss_rel", "logits_rel_l2"),
+                        ("grad_norm_rel", "grad_rel_l2")):
+        if not k[name] <= 2 * floor[limit]:
+            failures.append(f"train step, kernel vs xla: {name} {k[name]} "
+                            f"> 2 x {limit}'s floor {floor[limit]}")
+    want = 2 * L - mdlm.net.cfg.n_layers_geom
+    if (k["flash_launches"], floor["flash_launches"], ref_launches) != \
+            (want, 0, 0):
+        failures.append(f"train step launches: kernel "
+                        f"{k['flash_launches']} (want {want}), plain "
+                        f"{floor['flash_launches']}, xla {ref_launches}")
+    return {"batch_shape": list(batch["mask"].shape),
+            "xla": {"loss": ref_loss, "grad_norm": math.sqrt(
+                sum(g.float().norm().item() ** 2 for g in ref.values()))},
+            **out, "s": time.time() - t0}
+
+
+def train_path(torch, runtime, ops, card):
+    """Phase 8 (module docstring).  Returns (numbers, launches of the
+    path's runs: the dump, both training runs and the --ckpt sample)."""
+    import numpy as np
+
+    from esmdiff_tpu_torch.cli import dump as dump_cli
+    from esmdiff_tpu_torch.cli import sample as sample_cli
+    from esmdiff_tpu_torch.convert import checkpoints
+    from esmdiff_tpu_torch.models.esm3 import ESM3
+    from esmdiff_tpu_torch.nn.layers import Dense
+    from esmdiff_tpu_torch.train.config import load_config
+    from esmdiff_tpu_torch.train.loop import (build_mdlm, init_params,
+                                              mdlm_modules, trunk_config)
+    from esmdiff_tpu_torch.utils.checkpoint import load_params
+
+    t_phase = time.time()
+    fa = ops["flash_attention"]
+    work = ROOT / "output" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = work / "corpus"
+    failures = []
+
+    # 1. the corpus: every chain under data/targets/{apo,codnas,ped}
+    # through the full-width random-weight encoder (cli.dump)
+    t0 = time.time()
+    before = fa.launches
+    dirs = [ROOT / "data/targets" / d for d in ("apo", "codnas", "ped")]
+    n_files = sum(len(list(d.glob("*.pdb"))) for d in dirs)
+    n_chains = sum(dump_cli.main([str(d), str(corpus)], runtime=runtime)
+                   for d in dirs)
+    lengths = []
+    for f in sorted(corpus.glob("*.npz")):
+        with np.load(f) as z:
+            lengths.append(len(z["structure_tokens"]) - 2)
+    corpus_numbers = {"chains": n_chains, "files": n_files,
+                      "min_L": min(lengths), "max_L": max(lengths),
+                      "residues": sum(lengths), "s": time.time() - t0,
+                      "flash_launches": fa.launches - before}
+    if n_chains != n_files or len(lengths) != n_files or \
+            corpus_numbers["flash_launches"]:
+        failures.append(f"corpus: {corpus_numbers}")
+    print("[train corpus] " + json.dumps(corpus_numbers), flush=True)
+
+    cfg = load_config(str(ROOT / "configs/mdlm.yaml"))
+    tcfg = trunk_config(cfg)
+    with torch.device("meta"):
+        n_dense = sum(m.weight.numel() for m in ESM3(tcfg).modules()
+                      if isinstance(m, Dense))
+    n_layers = tcfg.n_layers
+    launches = {"flash_attention": corpus_numbers["flash_launches"]}
+
+    # 2. one unpacked epoch at full width
+    run = work / "unpacked"
+    unpacked, steps, evals, fails = train_run(
+        torch, fa, [f"data.path={corpus}", "data.pack_len=0",
+                    "trainer.max_epochs=1", "trainer.log_every_n_steps=1"],
+        run, n_dense)
+    failures += fails
+    want = (2 * n_layers - tcfg.n_layers_geom, n_layers)
+    if (unpacked["flash_per_train_step"], unpacked["flash_per_eval_batch"]) \
+            != ([want[0]], [want[1]]):
+        failures.append(f"unpacked flash launches per train step / eval "
+                        f"batch {unpacked['flash_per_train_step']} / "
+                        f"{unpacked['flash_per_eval_batch']}, want {want}")
+    launches["flash_attention"] += sum(r["flash"] for r in steps + evals)
+    step_dir = Path(json.loads(
+        (run / "ckpt" / "index.json").read_text())[0]["path"])
+    saved = load_params(step_dir)
+    # the parameters moved: the saved ones against a fresh init of the seed
+    fresh = build_mdlm(cfg, "cuda")
+    init_params(fresh, cfg)
+    fresh_sd = mdlm_modules(fresh).state_dict()
+    moved = {k: not torch.equal(saved[k], fresh_sd[k].cpu()) for k in (
+        "net.transformer.blocks.0.attn.qkv.weight",
+        f"net.transformer.blocks.{n_layers - 1}.ffn.down.weight",
+        "sigma_embedder.fc1.weight")}
+    del fresh, fresh_sd
+    unpacked["params_changed"] = moved
+    if not all(moved.values()):
+        failures.append(f"unpacked run: parameters unchanged: {moved}")
+    print("[train unpacked] " + json.dumps(unpacked), flush=True)
+
+    # 3. the shipped config: one epoch of packed rows of 512 (the corpus
+    # packs into 6 batches)
+    packed, steps, evals, fails = train_run(
+        torch, fa, [f"data.path={corpus}", "trainer.max_epochs=1",
+                    "trainer.log_every_n_steps=1"],
+        work / "packed", n_dense)
+    failures += fails
+    if packed["flash_per_train_step"] != [0] or \
+            packed["flash_per_eval_batch"] != [0]:
+        failures.append(f"packed run launched flash: {packed}")
+    shutil.rmtree(work / "packed")
+    print("[train packed] " + json.dumps(packed), flush=True)
+
+    # 4. kernel against plain in training, at full width
+    gate = train_kernel_vs_plain(torch, fa, corpus, failures)
+    torch.cuda.empty_cache()
+    print("[train gate] " + json.dumps(gate), flush=True)
+
+    # 5. --ckpt: the CLI loads the unpacked run and samples BPTI
+    t0 = time.time()
+    before = fa.launches
+    with recorded(checkpoints, "load_runtime") as loaded:
+        report = sample_cli.main([
+            "--ckpt", str(run / "ckpt"), "--mode", "ddpm", "--input",
+            str(ROOT / TARGET), "--output", str(work / "sample"),
+            "--num_samples", "8", "--seed", "0"])[0]
+    rt = loaded[0]
+    own = {**{f"net.{k}": v for k, v in rt.trunk.state_dict().items()},
+           **{f"sigma_embedder.{k}": v
+              for k, v in rt.sigma_embedder.state_dict().items()}}
+    differ = [k for k in saved
+              if k not in own or not torch.equal(own[k].cpu(), saved[k])]
+    if differ or own.keys() != saved.keys():
+        failures.append(f"--ckpt runtime vs saved params: {differ[:8]}")
+    pdb = work / "sample" / f"{report['target']}.pdb"
+    check_pdb(pdb.read_text(), 8, 8 * (report["L"] * 4 - 1), str(pdb))
+    lw = report["L"] + 2
+    want_ckpt = path_launches(rt.trunk.cfg, rt.decoder.cfg.n_layers, lw,
+                              False, num_samples=8)["flash_attention"]
+    ckpt_numbers = {"s": time.time() - t0, "L": report["L"],
+                    "sampling_s": report["sampling_sec"],
+                    "params_equal_bit_for_bit": not differ,
+                    "params_compared": len(saved),
+                    "flash_launches": fa.launches - before,
+                    "flash_launches_planned": want_ckpt}
+    if ckpt_numbers["flash_launches"] != want_ckpt:
+        failures.append(f"--ckpt sample launches {ckpt_numbers}")
+    launches["flash_attention"] += ckpt_numbers["flash_launches"]
+    del rt, loaded, own, saved
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    numbers = {"card": card, "phase_s": time.time() - t_phase,
+               "trunk_dense_params": n_dense, "corpus": corpus_numbers,
+               "unpacked": unpacked, "packed": packed, "gate": gate,
+               "ckpt": ckpt_numbers, "launches": launches}
+    if failures:
+        print("[train path] " + json.dumps(numbers), flush=True)
+        raise AssertionError("train path: " + "; ".join(failures))
+    return numbers, launches
+
+
 def main() -> int:
     import torch
 
@@ -1551,13 +1916,21 @@ def main() -> int:
                                          target_dirs, lws, card)
     print("[inpaint path] " + json.dumps(i_numbers), flush=True)
 
-    # 8. the kernels line (headline shape: the trunk's), the device line;
+    # 8. the train path: a corpus through cli.dump, an unpacked epoch and
+    # a packed run of configs/mdlm.yaml at full width, kernel vs plain in
+    # a train step, --ckpt through the sampling CLI
+    t_numbers, t_launches = train_path(torch, runtime, ops, card)
+    print("[train path] " + json.dumps(t_numbers), flush=True)
+
+    # 9. the kernels line (headline shape: the trunk's), the device line;
     # launches from the paths that run the kernel, fused_ffn's from its
     # phase (no model path runs it)
     by_path = {"default path": launches, "fused path": f_launches,
                "gibbs path": g_launches, "serve path": s_launches,
-               "inpaint path": i_launches}
-    launches_from = {"flash_attention": ("default path", "inpaint path"),
+               "inpaint path": i_launches,
+               "train path": {**dict.fromkeys(KERNELS, 0), **t_launches}}
+    launches_from = {"flash_attention": ("default path", "inpaint path",
+                                         "train path"),
                      "small_attention": ("fused path",),
                      "fused_qkv": ("fused path",)}
     entries = []

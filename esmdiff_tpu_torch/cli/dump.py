@@ -26,15 +26,16 @@ import numpy as np
 import torch
 
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
+from esmdiff_tpu_torch.convert import checkpoints
 from esmdiff_tpu_torch.models.esm3 import esm3_tiny
 from esmdiff_tpu_torch.models.vqvae import DecoderConfig, EncoderConfig
 
 
 def build_runtime(args) -> ESM3Runtime:
-    """Random weights at ``--model_scale`` (the stock-head trunk)."""
+    """The runtime of ``--ckpt`` (a training run of the port), or random
+    weights at ``--model_scale`` (the stock-head trunk)."""
     if args.ckpt:
-        raise NotImplementedError("checkpoint loading (--ckpt) is not "
-                                  "ported yet")
+        return checkpoints.load_runtime(args.ckpt, device=args.device)
     if args.model_scale == "tiny":
         return ESM3Runtime.random_init(
             seed=args.seed, trunk_cfg=esm3_tiny(dtype="float32"),

@@ -13,8 +13,10 @@ Modes (``--mode``, default gibbs as in JAX):
 projects each decoded CA trace into the bond/clash validity band.
 Inpainting: ``--mask_ids`` (residues to generate; ddpm and gibbs) or
 ``--filled_ids`` (residues to keep; ddpm) condition the ensemble on the
-target's structure through the VQ-VAE encoder.  Checkpoints, profiling and
-data parallelism are not ported yet and raise.
+target's structure through the VQ-VAE encoder.  ``--ckpt`` loads a
+training run of the port (``convert/checkpoints.py``); ``--vqvae_ckpt``,
+the JAX package's checkpoints, profiling and data parallelism are not
+ported yet and raise.
 
     python -m esmdiff_tpu_torch.cli.sample --input data/targets/bpti \\
         --output output/torch --mode gibbs --num_steps 16 --num_samples 100
@@ -33,6 +35,7 @@ import numpy as np
 
 from esmdiff_tpu_torch.api.generation import EnsembleSampler, GenerationConfig
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
+from esmdiff_tpu_torch.convert import checkpoints
 from esmdiff_tpu_torch.core import protein as protein_io
 from esmdiff_tpu_torch.models.esm3 import ESM3Config, esm3_tiny
 from esmdiff_tpu_torch.models.vqvae import DecoderConfig, EncoderConfig
@@ -44,11 +47,16 @@ def _not_ported(what: str):
 
 
 def build_runtime(args) -> ESM3Runtime:
-    """Random weights at ``--model_scale``, the trunk quantized from its
-    float32 weights with ``--quant int8``: the fine-tune structure head for
-    ddpm, the stock multi-track head for gibbs and eb."""
-    if args.ckpt or args.vqvae_ckpt:
-        _not_ported("checkpoint loading (--ckpt/--vqvae_ckpt)")
+    """The runtime of ``--ckpt`` (a training run of the port), or random
+    weights at ``--model_scale``: the fine-tune structure head for ddpm,
+    the stock multi-track head for gibbs and eb.  With ``--quant int8`` the
+    trunk is quantized from its float32 weights."""
+    if args.vqvae_ckpt:
+        _not_ported("--vqvae_ckpt (a trained VQ-VAE)")
+    if args.ckpt:
+        runtime = checkpoints.load_runtime(args.ckpt, device=args.device)
+        return runtime.quantize(args.quant) if args.quant != "none" \
+            else runtime
     print("[warning] no --ckpt given: sampling with RANDOM weights "
           "(throughput/dev runs only — outputs are not physical ensembles)")
     head = "structure" if args.mode == "ddpm" else "esm3"

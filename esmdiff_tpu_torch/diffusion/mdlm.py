@@ -1,10 +1,18 @@
-"""Masked Diffusion Language Modeling (ESMDiff) — the ancestral sampler.
+"""Masked Diffusion Language Modeling (ESMDiff) — objective and sampler.
 
-Port of the sampling half of ``esmdiff_tpu/diffusion/mdlm.py``:
-``forward_logits`` (by default the ``parameterize=False`` form: raw float32
-logits with the mask-token and special-token shields; ``parameterize=True``
-gives the SUBS log-probabilities) and ``ddpm_sample``, here a Python loop of
-``num_steps + 1`` trunk forwards where JAX scans.
+Port of ``esmdiff_tpu/diffusion/mdlm.py``: ``forward_logits`` (by default
+the ``parameterize=False`` form: raw float32 logits with the mask-token and
+special-token shields; ``parameterize=True`` gives the SUBS
+log-probabilities), the training objective (``sample_t``,
+``packed_segment_times``, ``q_xt``, ``MDLM.loss`` and ``MDLM.loss_packed``)
+and ``ddpm_sample``, here a Python loop of ``num_steps + 1`` trunk forwards
+where JAX scans.
+
+The loss draws its randomness from a draw source (``LossDraws``): the
+condition-dropout uniform, the condition-mask uniforms, the time uniforms,
+the packed permutation and the move uniforms.  The default,
+``GeneratorDraws``, draws from one ``torch.Generator`` on the device; the
+parity tests inject the draws JAX makes from its key.
 
 Randomness is an injectable noise source: a callable ``step -> (gumbel
 (B, L, V) float32, stay_u (B, L) float32)`` giving the draws of step
@@ -18,7 +26,7 @@ cannot be reproduced in PyTorch; the parity tests inject draws made by JAX.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Protocol, Sequence
 
 import torch
 
@@ -33,14 +41,111 @@ NoiseSource = Callable[[int], tuple[torch.Tensor, torch.Tensor]]
 
 @dataclasses.dataclass(frozen=True)
 class MDLMConfig:
-    """The sampler's fields of the JAX ``MDLMConfig`` (the training fields
-    come with the loss, in a later slice)."""
-
     time_conditioning: bool = True
+    change_of_variables: bool = False
+    importance_sampling: bool = False
+    antithetic_sampling: bool = True
     noise_removal: bool = True
+    structure_only: bool = False
     sequence_prediction: bool = False
+    condition_dropout: float = 0.0
+    condition_mask_rate: float = 0.0
+    coupled_condition_mask: bool = False
+    sampling_eps: float = 1e-3
+    T: int = 0  # 0 = continuous time
     mask_index: int = C.STRUCTURE_MASK_TOKEN
+    condition_mask_index: int = C.SEQUENCE_MASK_TOKEN
     vocab_size: int = C.STRUCTURE_VOCAB_SIZE
+
+
+class LossDraws(Protocol):
+    """Where the loss's randomness comes from: each method returns float32
+    uniforms in [0, 1) (or, ``permutation``, a permutation of range(n)) on
+    the device of the batch."""
+
+    def dropout(self) -> torch.Tensor:
+        """() — the condition-dropout draw."""
+
+    def condition_mask(self, shape) -> torch.Tensor:
+        """shape — the condition-mask draws."""
+
+    def times(self, n: int) -> torch.Tensor:
+        """(n,) — the diffusion-time draws."""
+
+    def permutation(self, n: int) -> torch.Tensor:
+        """(n,) int64 — the packed loss's permutation of its time slots."""
+
+    def move(self, shape) -> torch.Tensor:
+        """shape — the forward-diffusion (masking) draws."""
+
+
+class GeneratorDraws:
+    """Default draw source: one ``torch.Generator`` on ``device``, seeded
+    with ``seed``; each call draws the next values from it."""
+
+    def __init__(self, device, seed: int = 0):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+
+    def _uniform(self, shape):
+        return torch.rand(tuple(shape), generator=self.generator,
+                          device=self.device, dtype=torch.float32)
+
+    def dropout(self):
+        return self._uniform(())
+
+    def condition_mask(self, shape):
+        return self._uniform(shape)
+
+    def times(self, n):
+        return self._uniform((n,))
+
+    def permutation(self, n):
+        return torch.randperm(n, generator=self.generator,
+                              device=self.device)
+
+    def move(self, shape):
+        return self._uniform(shape)
+
+
+def sample_t(draws: LossDraws, n: int, cfg: MDLMConfig, noise: Noise):
+    """Antithetic low-discrepancy time sampling: (n,) times in
+    [sampling_eps, 1]."""
+    eps_t = draws.times(n)
+    if cfg.antithetic_sampling:
+        offset = torch.arange(n, dtype=torch.float32,
+                              device=eps_t.device) / n
+        eps_t = torch.remainder(eps_t / n + offset, 1.0)
+    t = (1 - cfg.sampling_eps) * eps_t + cfg.sampling_eps
+    if cfg.importance_sampling:
+        t = noise.importance_sampling_transformation(t)
+    return t
+
+
+def packed_segment_times(draws: LossDraws, B: int, S: int, cfg: MDLMConfig,
+                         noise: Noise):
+    """(B, S) per-segment diffusion times for packed training: antithetic
+    strata over all B*S slots, then permuted across slots, so that a row
+    holding fewer than S segments does not train only at S-spaced noise
+    levels."""
+    t = sample_t(draws, B * S, cfg, noise)
+    return t[draws.permutation(B * S).to(t.device)].reshape(B, S)
+
+
+def q_xt(draws: LossDraws, x0, move_chance, cfg: MDLMConfig,
+         condition_seq=None, non_moving_mask=None):
+    """Forward diffusion: mask each token with probability move_chance;
+    with ``coupled_condition_mask`` the condition sequence is masked at the
+    same positions."""
+    move = draws.move(x0.shape) < move_chance
+    if non_moving_mask is not None:
+        move = move & ~non_moving_mask.bool()
+    xt = torch.where(move, cfg.mask_index, x0)
+    if cfg.coupled_condition_mask and condition_seq is not None:
+        condition_seq = torch.where(move, cfg.condition_mask_index,
+                                    condition_seq)
+    return xt, condition_seq
 
 
 def shield_special_tokens(logits):
@@ -164,6 +269,137 @@ class MDLM:
         if seq_logits is not None:
             seq_logits = seq_logits.reshape(B, L, -1)
         return logits, seq_logits
+
+    # -- training objective -------------------------------------------------
+    def _condition(self, condition_seq, draws: LossDraws, training: bool):
+        """The conditioning sequence as the loss sees it: dropped whole
+        (``condition_dropout``), masked per position
+        (``condition_mask_rate``, pads kept) while training, or all
+        masked (``structure_only``)."""
+        cfg = self.cfg
+        if cfg.condition_dropout > 0 and training:
+            drop = draws.dropout() < cfg.condition_dropout
+            condition_seq = torch.where(drop, C.SEQUENCE_MASK_TOKEN,
+                                        condition_seq)
+        if cfg.condition_mask_rate > 0 and training:
+            m = ((draws.condition_mask(condition_seq.shape)
+                  < cfg.condition_mask_rate)
+                 & (condition_seq != C.SEQUENCE_PAD_TOKEN))
+            condition_seq = torch.where(m, C.SEQUENCE_MASK_TOKEN,
+                                        condition_seq)
+        if cfg.structure_only:
+            condition_seq = torch.full_like(condition_seq,
+                                            C.SEQUENCE_MASK_TOKEN)
+        return condition_seq
+
+    def _noise_levels(self, t):
+        """(net conditioning, move chance, per-token NELBO weight or None)
+        at times ``t``; discrete time (``T`` > 0) rounds t first."""
+        cfg = self.cfg
+        if cfg.T > 0:
+            t = (t * cfg.T).int().float() / cfg.T + 1.0 / cfg.T
+        if cfg.change_of_variables:
+            f_T = torch.log1p(-torch.exp(-self.noise.sigma_max))
+            f_0 = torch.log1p(-torch.exp(-self.noise.sigma_min))
+            return t, torch.exp(f_0 + t * (f_T - f_0)), None
+        sigma, dsigma = self.noise(t)
+        return sigma, 1 - torch.exp(-sigma), dsigma / torch.expm1(sigma)
+
+    def _nelbo(self, logits, seq_logits, x0, sequence_tokens, loss_mask,
+               weight):
+        """Masked mean of the per-token NELBO over ``loss_mask`` (plus the
+        sequence NLL with ``sequence_prediction``) -> (loss, breakdown)."""
+        cfg = self.cfg
+        log_p_theta = logits.gather(-1, x0[..., None]).squeeze(-1)
+        if cfg.change_of_variables or cfg.importance_sampling:
+            per_tok = log_p_theta * torch.log1p(
+                -torch.exp(-self.noise.sigma_min))
+        else:
+            per_tok = -log_p_theta * weight
+        denom = loss_mask.sum().clamp_min(1.0)
+        loss = (per_tok * loss_mask).sum() / denom
+        breakdown = {"nelbo": loss}
+        if cfg.sequence_prediction:
+            seq_lp = torch.log_softmax(seq_logits.float(), dim=-1)
+            seq_nll = -seq_lp.gather(-1, sequence_tokens[..., None]).squeeze(-1)
+            seq_nll = torch.where(sequence_tokens == C.SEQUENCE_PAD_TOKEN,
+                                  0.0, seq_nll)
+            seq_nll = (seq_nll * loss_mask).sum() / denom
+            loss = loss + seq_nll
+            breakdown["seq_nll"] = seq_nll
+        return loss, breakdown
+
+    def loss(self, batch: dict, draws: LossDraws, training: bool = True):
+        """Continuous-time NELBO over padded rows, one diffusion time a row.
+
+        batch: structure_tokens (B, L) int64, sequence_tokens (B, L) int64,
+        mask (B, L) float32, optional non_moving_mask (B, L).  The trunk
+        runs with no attention mask (the reference attends into padding),
+        so at every L it takes the attention kernel.
+        Returns (loss, dict of breakdown metrics)."""
+        cfg = self.cfg
+        x0 = batch["structure_tokens"]
+        B = x0.shape[0]
+        condition_seq = self._condition(batch["sequence_tokens"], draws,
+                                        training)
+        loss_mask = batch["mask"] * (x0 != C.STRUCTURE_PAD_TOKEN)
+        cond, move_chance, weight = self._noise_levels(
+            sample_t(draws, B, cfg, self.noise))
+        xt, condition_seq = q_xt(
+            draws, x0, move_chance[:, None], cfg, condition_seq=condition_seq,
+            non_moving_mask=batch.get("non_moving_mask"))
+        logits, seq_logits = self.forward_logits(
+            xt, condition_seq, cond[:, None], parameterize=True)
+        return self._nelbo(logits, seq_logits, x0, batch["sequence_tokens"],
+                           loss_mask, None if weight is None
+                           else weight[:, None])
+
+    def loss_packed(self, batch: dict, draws: LossDraws, max_segments: int,
+                    training: bool = True, t_override=None):
+        """NELBO over sequence-packed rows (``train/data.py``
+        ``packed_batches``): the objective of ``loss`` with one diffusion
+        time per segment, attention segment-masked (the plain path) and
+        rotary positions restarting per segment.
+
+        batch: structure_tokens / sequence_tokens / mask (B, P), plus
+        segment_ids (B, P) with -1 on padding and positions (B, P).
+        max_segments: S, the per-row segment-slot count of the (B, S) time
+        draw.  t_override: optional (B, S) times in place of the draw."""
+        cfg = self.cfg
+        x0 = batch["structure_tokens"]
+        seg = batch["segment_ids"]
+        B = x0.shape[0]
+        S = int(max_segments)
+        valid = seg >= 0
+        segc = seg.clamp(0, S - 1).long()
+        condition_seq = self._condition(batch["sequence_tokens"], draws,
+                                        training)
+        loss_mask = (batch["mask"] * (x0 != C.STRUCTURE_PAD_TOKEN)
+                     * valid.float())
+        t = (packed_segment_times(draws, B, S, cfg, self.noise)
+             if t_override is None else t_override)
+        cond_seg, move_seg, weight_seg = self._noise_levels(t)   # (B, S)
+        # padding slots stay un-noised (outside attention and loss)
+        nmm = ~valid
+        if batch.get("non_moving_mask") is not None:
+            nmm = nmm | batch["non_moving_mask"].bool()
+        xt, condition_seq = q_xt(draws, x0, move_seg.gather(1, segc), cfg,
+                                 condition_seq=condition_seq,
+                                 non_moving_mask=nmm)
+        # the per-segment sigma embedding, gathered to the tokens
+        if not cfg.time_conditioning:
+            cond_seg = torch.zeros_like(cond_seg)
+        emb = self.sigma_embedder(cond_seg.reshape(B * S)).reshape(B, S, -1)
+        aux = emb.gather(1, segc[..., None].expand(-1, -1, emb.shape[-1]))
+        out = self.net(structure_tokens=xt, sequence_tokens=condition_seq,
+                       sequence_id=seg, positions=batch["positions"],
+                       auxiliary_embeddings=aux)
+        logits = logits_parameterization(out.structure_logits, xt, cfg)
+        seq_logits = (out.sequence_logits if cfg.sequence_prediction
+                      else None)
+        return self._nelbo(logits, seq_logits, x0, batch["sequence_tokens"],
+                           loss_mask, None if weight_seg is None
+                           else weight_seg.gather(1, segc))
 
     @torch.no_grad()
     def ddpm_sample(self, sequence_tokens, noise_source: NoiseSource,

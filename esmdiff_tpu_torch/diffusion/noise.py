@@ -2,8 +2,9 @@
 
 Port of the five schedules of ``esmdiff_tpu/diffusion/noise.py``
 (LogLinear — the MDLM default and the one the sampler uses — Cosine,
-CosineSqr, Linear, Geometric), as stateless functions of a float32 tensor.
-The importance-sampling transforms come with the training loss.
+CosineSqr, Linear, Geometric), as stateless functions of a float32 tensor,
+with ``sigma_min``/``sigma_max`` and the importance-sampling transforms of
+LogLinear and Linear that the training loss uses.
 """
 
 from __future__ import annotations
@@ -28,6 +29,14 @@ class Noise:
         t = torch.as_tensor(t, dtype=torch.float32)
         return self.total_noise(t), self.rate_noise(t)
 
+    @property
+    def sigma_min(self):
+        return self.total_noise(torch.tensor(0.0))
+
+    @property
+    def sigma_max(self):
+        return self.total_noise(torch.tensor(1.0))
+
 
 @dataclasses.dataclass(frozen=True)
 class LogLinearNoise(Noise):
@@ -40,6 +49,12 @@ class LogLinearNoise(Noise):
 
     def rate_noise(self, t):
         return (1 - self.eps) / (1 - (1 - self.eps) * t)
+
+    def importance_sampling_transformation(self, t):
+        f_T = torch.log1p(-torch.exp(-self.sigma_max.to(t.device)))
+        f_0 = torch.log1p(-torch.exp(-torch.tensor(self.eps, device=t.device)))
+        sigma_t = -torch.log1p(-torch.exp(t * f_T + (1 - t) * f_0))
+        return -torch.expm1(-sigma_t) / (1 - self.eps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +95,13 @@ class LinearNoise(Noise):
 
     def rate_noise(self, t):
         return torch.full_like(t, self.sigma_max_v - self.sigma_min_v)
+
+    def importance_sampling_transformation(self, t):
+        f_T = torch.log1p(-torch.exp(-self.sigma_max.to(t.device)))
+        f_0 = torch.log1p(-torch.exp(-self.sigma_min.to(t.device)))
+        sigma_t = -torch.log1p(-torch.exp(t * f_T + (1 - t) * f_0))
+        return ((sigma_t - self.sigma_min_v)
+                / (self.sigma_max_v - self.sigma_min_v))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,7 +5,10 @@ SwiGLU FFN, geometric attention in block 0 over frames built from input
 coordinates), residuals scaled by 1/sqrt(n_layers/36), final LayerNorm and
 swappable output heads.  The layers are a plain ``ModuleList``
 (``blocks[i]`` is layer i) where JAX scans over stacked parameters;
-``convert.py`` unstacks them.
+``convert`` unstacks them.  With ``remat`` (the default, as in JAX) the
+blocks JAX scans are rematerialised in the backward while autograd records
+(``torch.utils.checkpoint``, non-reentrant); block 0, with geometric
+attention, is not, as in JAX.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from esmdiff_tpu_torch.core import constants as C
 from esmdiff_tpu_torch.device import torch_dtype
@@ -43,6 +47,11 @@ class ESM3Config:
     n_structure_heads: int = C.STRUCTURE_VOCAB_SIZE
     n_sequence_heads: int = 0
     dtype: str = "bfloat16"
+    # recompute blocks n_layers_geom.. in the backward (training only);
+    # "nothing" = the whole block.  JAX's "dots" (keep the products) is not
+    # ported and raises.
+    remat: bool = True
+    remat_policy: str = "nothing"
     # "auto"/"flash" = flash kernel, "small" = rotary fused into the
     # attention kernel, "xla" = plain attention (nn/layers.py)
     attn_backend: str = "auto"
@@ -112,6 +121,10 @@ class TransformerBlock(nn.Module):
 class TransformerStack(nn.Module):
     def __init__(self, cfg: ESM3Config):
         super().__init__()
+        if cfg.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r} is not ported yet (the "
+                "port recomputes whole blocks: 'nothing')")
         self.cfg = cfg
         self.blocks = nn.ModuleList(
             TransformerBlock(cfg, use_geom_attn=i < cfg.n_layers_geom)
@@ -141,7 +154,12 @@ class TransformerStack(nn.Module):
             # is the equivalent 0/1 id pattern
             sequence_id = (torch.arange(x.shape[1], device=x.device)[None, :]
                            < lengths.to(x.device)[:, None]).int()
-        for block in self.blocks:
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i, block in enumerate(self.blocks):
+            if remat and i >= cfg.n_layers_geom:
+                x = checkpoint(block, x, rot_cos, rot_sin, mask=mask,
+                               lengths=lengths, use_reentrant=False)
+                continue
             x = block(x, rot_cos, rot_sin, mask=mask, lengths=lengths,
                       affine=affine, affine_mask=affine_mask,
                       sequence_id=sequence_id, chain_id=chain_id,

@@ -5,7 +5,7 @@ Port of ``esmdiff_tpu/nn/layers.py``: both ``qkv_backend``s, every
 with the pre-projection LayerNorm's gamma folded into the weights).  Submodule and parameter
 names follow the flax modules (``ln``, ``qkv``, ``q_ln``, ...), and the
 fused-QKV path owns the same parameters as the unfused one, so
-``convert.py`` maps a flax tree made with either backend onto a state dict
+``convert`` maps a flax tree made with either backend onto a state dict
 by renaming leaves only.
 
 Dtypes follow flax: parameters are held in float32 (``param_dtype``) and a

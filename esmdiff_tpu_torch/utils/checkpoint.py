@@ -1,0 +1,68 @@
+"""Checkpointing: top-k by validation loss, and resume.
+
+Port of ``esmdiff_tpu/utils/checkpoint.py`` with ``torch.save`` in place of
+orbax.  ``save`` writes the whole train state into ``step_N/``: the
+parameters (``params.pt``, the model's state dict in float32), the
+optimizer state (``optimizer.pt``) and the step (``state.json``), in
+separate files so that a sampler loads the parameters alone
+(``load_params``, memory-mapped).  ``index.json`` keeps the JAX layout: a
+list of {"step", "metric", "path"}, best metric first, at most
+``save_top_k`` entries; a pruned entry's directory is deleted.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+from pathlib import Path
+
+import torch
+
+PARAMS, OPTIMIZER, STATE = "params.pt", "optimizer.pt", "state.json"
+
+
+def load_params(step_dir: str | Path) -> dict:
+    """The saved parameters of ``step_dir`` as a state dict of CPU tensors,
+    memory-mapped from the file."""
+    return torch.load(Path(step_dir) / PARAMS, map_location="cpu",
+                      mmap=True, weights_only=True)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str | Path, save_top_k: int = 1):
+        self.dir = Path(directory).absolute()
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.save_top_k = save_top_k
+        self._index_path = self.dir / "index.json"
+        self._index = []
+        if self._index_path.exists():
+            self._index = json.loads(self._index_path.read_text())
+
+    def save(self, state, step: int, metric: float):
+        path = self.dir / f"step_{step}"
+        path.mkdir(parents=True, exist_ok=True)
+        torch.save(state.model.state_dict(), path / PARAMS)
+        torch.save(state.optimizer.adamw.state_dict(), path / OPTIMIZER)
+        (path / STATE).write_text(json.dumps({"step": state.step}))
+        self._index = [e for e in self._index if e["step"] != step]
+        self._index.append({"step": step, "metric": metric,
+                            "path": str(path)})
+        self._index.sort(key=lambda e: e["metric"])
+        while len(self._index) > self.save_top_k:
+            worst = self._index.pop()
+            shutil.rmtree(worst["path"], ignore_errors=True)
+        self._index_path.write_text(json.dumps(self._index, indent=2))
+
+    def best_path(self) -> str | None:
+        return self._index[0]["path"] if self._index else None
+
+    def restore(self, path: str | Path, state):
+        """Load ``path``'s parameters, optimizer state and step into
+        ``state`` (in place, onto its devices) and return it."""
+        path = Path(path)
+        state.model.load_state_dict(load_params(path), strict=True)
+        dev = next(state.model.parameters()).device
+        state.optimizer.adamw.load_state_dict(torch.load(
+            path / OPTIMIZER, map_location=dev, weights_only=True))
+        state.step = json.loads((path / STATE).read_text())["step"]
+        return state

@@ -14,6 +14,7 @@ from esmdiff_tpu_torch.api.protein_api import ESM3Runtime
 from esmdiff_tpu_torch.cli import dump as dump_cli
 from esmdiff_tpu_torch.cli import sample as cli
 from esmdiff_tpu_torch.cli import serve as serve_cli
+from esmdiff_tpu_torch.cli import train as train_cli
 from esmdiff_tpu_torch.models.esm3 import esm3_tiny
 from esmdiff_tpu_torch.models.vqvae import DecoderConfig
 
@@ -41,7 +42,7 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 35  # every module was imported
+    assert int(res.stdout.split()[-1]) >= 44  # every module was imported
 
 
 def test_serving_modules_import_without_jax():
@@ -60,6 +61,29 @@ def test_serving_modules_import_without_jax():
              "StructureTokenEncoder, knn_graph, nearest_code\n"
              "assert not [m for m in sys.modules if m.startswith("
              "'esmdiff_tpu.')]\n")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+def test_training_modules_import_without_jax():
+    """The training slice's modules by name, with jax, flax, optax and
+    orbax blocked: config, data, state, loop, the train CLI, the
+    checkpoint manager, the metric logger, the carry-over and
+    ``load_runtime``."""
+    probe = ("import sys\n"
+             "for m in ('jax', 'flax', 'optax', 'orbax', "
+             "'orbax.checkpoint'):\n    sys.modules[m] = None\n"
+             "import esmdiff_tpu_torch.train.config"
+             ", esmdiff_tpu_torch.train.data, esmdiff_tpu_torch.train.state"
+             ", esmdiff_tpu_torch.train.loop, esmdiff_tpu_torch.cli.train"
+             ", esmdiff_tpu_torch.utils.checkpoint"
+             ", esmdiff_tpu_torch.utils.logging"
+             ", esmdiff_tpu_torch.convert.checkpoints\n"
+             "from esmdiff_tpu_torch.convert import (flax_names, "
+             "load_flax_params, state_dict_to_flax)\n"
+             "assert not [m for m in sys.modules if m == 'esmdiff_tpu' or "
+             "m.startswith('esmdiff_tpu.')]\n")
     res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
@@ -95,6 +119,15 @@ def test_cli_without_device_raises(no_cuda, tmp_path):
     assert not (tmp_path / "bpti.pdb").exists()
 
 
+def test_train_cli_without_device_raises(no_cuda, tmp_path):
+    """esmdiff-torch-train without --device cpu and no card raises before
+    it writes or trains anything."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--config", str(ROOT / "configs/mdlm_smoke.yaml"),
+                        f"trainer.ckpt_dir={tmp_path}/run"])
+    assert not (tmp_path / "run").exists()
+
+
 def test_server_without_device_raises(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_cli.main(["--model_scale", "tiny", "--quant", "int8",
@@ -102,9 +135,10 @@ def test_server_without_device_raises(no_cuda):
 
 
 def test_unported_modes_raise(tmp_path):
-    """What stays unported raises: checkpoints, profiling and data
-    parallelism (inpainting, --mask_ids/--filled_ids, is ported:
-    tests/test_torch_inpaint.py)."""
+    """What stays unported raises: a PyTorch ESM3 trunk file as --ckpt
+    (the port's own training runs load: tests/test_torch_train_loop.py),
+    profiling and data parallelism (inpainting, --mask_ids/--filled_ids,
+    is ported: tests/test_torch_inpaint.py)."""
     for extra in (["--ckpt", "trunk.pt"], ["--data_parallel"],
                   ["--profile", str(tmp_path / "trace")]):
         with pytest.raises(NotImplementedError, match="not ported"):

@@ -118,3 +118,37 @@ def jax_request_uniform_factory(rows, L, V, device):
         np.asarray(jax.random.fold_in(jax.random.PRNGKey(int(s)), int(j)))
         for s, j in rows])
     return jax_unmask_uniforms(keys, L, V)
+
+
+class JaxLossDraws:
+    """The draws ``esmdiff_tpu`` ``MDLM.loss`` (``packed=False``) or
+    ``MDLM.loss_packed`` (``packed=True``) makes from ``key``, as a draw
+    source for the port's loss: ``split(key, 4)`` into the dropout,
+    condition-mask, time and move keys; the packed loss splits the time key
+    again into the time and permutation keys."""
+
+    def __init__(self, key, packed: bool = False):
+        self.k_drop, self.k_cmask, self.k_t, self.k_q = jax.random.split(
+            key, 4)
+        self.k_perm = None
+        if packed:
+            self.k_t, self.k_perm = jax.random.split(self.k_t)
+
+    @staticmethod
+    def _t(x):
+        return torch.from_numpy(np.array(x))
+
+    def dropout(self):
+        return self._t(jax.random.uniform(self.k_drop))
+
+    def condition_mask(self, shape):
+        return self._t(jax.random.uniform(self.k_cmask, tuple(shape)))
+
+    def times(self, n):
+        return self._t(jax.random.uniform(self.k_t, (n,)))
+
+    def permutation(self, n):
+        return self._t(jax.random.permutation(self.k_perm, n)).long()
+
+    def move(self, shape):
+        return self._t(jax.random.uniform(self.k_q, tuple(shape)))
