@@ -96,14 +96,35 @@ Phases, each of which fails loudly (no error is caught):
      whole gradient and three parameters' gradients within twice the
      spread of two plain roundings); cli.sample --ckpt on the unpacked
      run (trunk parameters equal the saved ones bit for bit, a finite
-     8-MODEL PDB of BPTI);
-  9. print the card, each path's numbers, the kernels line, and as the last
-     line {"ok": true, "device": {...}}.
+     8-MODEL PDB of BPTI); the run is kept for phase 9;
+  9. the vqvae path, with the earlier runtimes freed: two probe steps at
+     the CLI's default batch 32 (peak GiB printed), then, at batch 16,
+     esmdiff-torch-train-vqvae --scale full (encoder d 1024,
+     k 16, 4096 codes, float32; decoder d 1280 x 30, bf16, remat; AdamW
+     warmup-cosine, clip 1.0) --steps 20 --restart_every 10 --augment on
+     the chains of data/targets/{apo,codnas,ped} (pad_L 512, decoder rows
+     514): exact flash launches a train step (forward + remat's
+     recompute) and a val_recon, finite losses, val_recon falling, a
+     restart, the parameters moved (warm ms a step, residues/s, the host
+     share, peak GiB, the export's seconds printed); one VQ step's
+     forward and backward through the kernel against the decoder on
+     attn_backend="xla" (bb_pred, loss, whole gradient, bridge and
+     codebook gradients within twice the spread of two plain roundings),
+     and, printed, the encoder's share of a step's forward and backward;
+     the export through load_vqvae, its standalone decoder against the
+     training-time bb_pred (within twice that floor); cli.sample --ckpt
+     (the train path's run) --vqvae_ckpt (the export) on BPTI x 8: the
+     runtime's encoder and decoder equal the saved tensors bit for bit, a
+     finite 8-MODEL PDB, exact launches; the flash kernel's device time
+     at the decoder's VQ shapes (unmasked), beside its bound and SDPA;
+ 10. print the card, each path's numbers, the kernels line, and as the
+     last line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA card or without the
 rest of the repo beside it.
 """
 
 import contextlib
+import gc
 import json
 import math
 import shutil
@@ -137,6 +158,10 @@ EB_NUM_STEPS = 25
 # the inpaint path's spans, 0-based residues: 15 of BPTI's 58, 18 of
 # 1jm4.B's 118
 INPAINT_SPANS = {"bpti": range(10, 25), "1jm4.B": range(40, 58)}
+# the vqvae path: esmdiff-torch-train-vqvae --scale full on these chains,
+# at batch 16: the CLI's default 32 does not fit 20 steps in 80 GB (the
+# probe prints batch 32's peak over two steps; PERF.md, tokenizer)
+VQ_DIRS, VQ_STEPS, VQ_BATCH, VQ_PROBE = ("apo", "codnas", "ped"), 20, 16, 32
 KERNELS = ("flash_attention", "small_attention", "fused_qkv", "fused_ffn")
 REPLACES = {
     "flash_attention": "esmdiff_tpu/ops/flash_attention.py:37",
@@ -1583,7 +1608,8 @@ def train_kernel_vs_plain(torch, fa, corpus, failures):
 
 def train_path(torch, runtime, ops, card):
     """Phase 8 (module docstring).  Returns (numbers, launches of the
-    path's runs: the dump, both training runs and the --ckpt sample)."""
+    path's runs: the dump, both training runs and the --ckpt sample, the
+    unpacked run's checkpoint directory, which the vqvae path deletes)."""
     import numpy as np
 
     from esmdiff_tpu_torch.cli import dump as dump_cli
@@ -1712,7 +1738,8 @@ def train_path(torch, runtime, ops, card):
         failures.append(f"--ckpt sample launches {ckpt_numbers}")
     launches["flash_attention"] += ckpt_numbers["flash_launches"]
     del rt, loaded, own, saved
-    shutil.rmtree(work)
+    for sub in (corpus, work / "sample"):
+        shutil.rmtree(sub)
     torch.cuda.empty_cache()
     numbers = {"card": card, "phase_s": time.time() - t_phase,
                "trunk_dense_params": n_dense, "corpus": corpus_numbers,
@@ -1721,7 +1748,385 @@ def train_path(torch, runtime, ops, card):
     if failures:
         print("[train path] " + json.dumps(numbers), flush=True)
         raise AssertionError("train path: " + "; ".join(failures))
-    return numbers, launches
+    return numbers, launches, run / "ckpt"
+
+
+@contextlib.contextmanager
+def calls(torch, owner, name, fa, out):
+    """Wraps ``owner.name`` while the block runs: each call synchronised
+    before and after, its seconds, flash launches, arguments and result
+    appended to ``out``; the call itself is unchanged."""
+    orig = getattr(owner, name)
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        before, t0 = fa.launches, time.perf_counter()
+        result = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        out.append({"s": time.perf_counter() - t0,
+                    "flash": fa.launches - before, "args": args,
+                    "result": result})
+        return result
+
+    setattr(owner, name, wrapped)
+    try:
+        yield out
+    finally:
+        setattr(owner, name, orig)
+
+
+def vq_probe(torch, tvq, tstate, cfgs, corpus, batch):
+    """Two VQ train steps (forward, backward, AdamW: the second with the
+    Adam moments allocated) of a fresh full-geometry model at ``batch`` on
+    the longest chains: the peak GiB, or None when the card runs out of
+    memory (activations have static shapes, so the chains do not change
+    the answer)."""
+    import numpy as np
+
+    coords, lengths = corpus
+    held = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with torch.device("cuda"):
+            held["model"] = model = tvq.VQVAE(*cfgs)
+        tvq.init_vqvae(model, 0)
+        held["state"] = state = tstate.create_train_state(
+            model, tstate.make_optimizer(model.parameters(), lr=3e-4,
+                                         weight_decay=0.01, grad_clip=1.0))
+        b = tvq.gather_batch(coords, lengths,
+                             np.argsort(lengths)[-batch:], "cuda")
+        for _ in range(2):
+            tstate.train_step(state, lambda bb, d: tvq.batch_loss(
+                model, bb, tvq.VQLossConfig()), b, None)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 2**30
+    except torch.cuda.OutOfMemoryError:
+        return None
+    finally:
+        held.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_flash_unmasked(torch, fa, B, L, H, gen):
+    """The flash kernel with no lengths (the VQ decoder's call) against
+    its plain version, and its device time beside the bound and SDPA."""
+    import torch.nn.functional as F
+
+    q, k, v = (torch.randn(B, L, H, 64, device="cuda", dtype=torch.bfloat16,
+                           generator=gen) for _ in range(3))
+    res = compare(torch, "flash_attention", fa.flash_attention(q, k, v),
+                  fa.flash_attention_reference(q, k, v), (B, L, H))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    full = torch.full((B,), L, device="cuda", dtype=torch.int32)
+    return {"B": B, "L": L, "H": H, **res,
+            "ms": device_ms(lambda: fa.flash_attention(q, k, v)),
+            "plain_ms": device_ms(
+                lambda: fa.flash_attention_reference(q, k, v)),
+            "library_ms": device_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+            **bound(*attention_cost(q, full))}
+
+
+def vq_kernel_vs_plain(torch, fa, tvq, model, batch, failures):
+    """One VQ train step's forward and backward (the trained parameters,
+    one unaugmented batch) three times: the decoder on the kernel, on its
+    plain version, and on ``attn_backend="xla"``.  Gated: bb_pred, the
+    whole gradient and the bridge and codebook gradients, kernel vs xla
+    in relative L2, within twice the spread of the two plain roundings;
+    the loss's relative change within twice bb_pred's floor.  The encoder
+    runs the same ops in all three (so its codebook gradient agrees
+    exactly).  Returns the numbers and bb_pred's floor."""
+    params = dict(model.named_parameters())
+    named = ("bridge.weight", "encoder.codebook")
+    blocks = model.decoder.decoder_stack.blocks
+
+    def run(flash, backend):
+        for block in blocks:
+            block.attn.attn_backend = backend
+        saved, fa.flash_attention = fa.flash_attention, flash
+        before = fa.launches
+        try:
+            model.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                out, aux = model(batch["coords"], batch["lengths"])
+                loss, _ = tvq.vqvae_loss(
+                    out, aux, batch["coords_clean"], batch["coord_mask"],
+                    batch["lengths"], tvq.VQLossConfig())
+                loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            fa.flash_attention = saved
+            for block in blocks:
+                block.attn.attn_backend = "auto"
+        return loss.item(), out["bb_pred"].detach().float(), \
+            fa.launches - before
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    t0 = time.time()
+    ref_loss, ref_bb, ref_launches = run(fa.flash_attention, "xla")
+    ref = {n: p.grad.clone() for n, p in params.items()
+           if p.grad is not None}
+    out = {}
+    for key, flash in (("kernel", fa.flash_attention),
+                       ("plain_version", fa.flash_attention_reference)):
+        loss, bb, launches = run(flash, "auto")
+        diff2 = norm2 = 0.0
+        for n, g in ref.items():
+            diff2 += (params[n].grad - g).float().norm().item() ** 2
+            norm2 += g.float().norm().item() ** 2
+        out[key] = {"loss": loss,
+                    "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+                    "bb_pred_rel_l2": rel(bb, ref_bb),
+                    "grad_rel_l2": math.sqrt(diff2 / norm2),
+                    **{f"{n}_grad_rel_l2": rel(params[n].grad, ref[n])
+                       for n in named},
+                    "flash_launches": launches}
+    model.zero_grad(set_to_none=True)
+    k, floor = out["kernel"], out["plain_version"]
+    for name in ("bb_pred_rel_l2", "grad_rel_l2",
+                 *(f"{n}_grad_rel_l2" for n in named)):
+        if not k[name] <= 2 * floor[name]:
+            failures.append(f"VQ step, kernel vs xla: {name} {k[name]} > 2 "
+                            f"x the plain roundings' {floor[name]}")
+    if not k["loss_rel"] <= 2 * floor["bb_pred_rel_l2"]:
+        failures.append(f"VQ step, kernel vs xla: loss_rel {k['loss_rel']}"
+                        f" > 2 x bb_pred's floor {floor['bb_pred_rel_l2']}")
+    want = 2 * len(blocks)
+    if (k["flash_launches"], floor["flash_launches"], ref_launches) != \
+            (want, 0, 0):
+        failures.append(f"VQ step launches: kernel {k['flash_launches']} "
+                        f"(want {want}), plain {floor['flash_launches']}, "
+                        f"xla {ref_launches}")
+    return {"batch_shape": list(batch["coords"].shape[:2]),
+            "xla": {"loss": ref_loss}, **out, "s": time.time() - t0}, \
+        floor["bb_pred_rel_l2"]
+
+
+def vq_split_ms(torch, tvq, model, batch, reps=3):
+    """Synchronised wall ms of one VQ forward and backward, and of the
+    encoder's alone (the backward of its outputs' sum): the encoder's
+    share of a step.  Mean of ``reps`` calls after one warm call."""
+    def encoder():
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            _, z, _, z_q = model.encoder(batch["coords"], return_zq=True)
+            (z.float().sum() + z_q.sum()).backward()
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            tvq.batch_loss(model, batch, tvq.VQLossConfig())[0].backward()
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    out = {"encoder_fwd_bwd_ms": ms(encoder), "step_fwd_bwd_ms": ms(step)}
+    model.zero_grad(set_to_none=True)
+    out["encoder_share"] = out["encoder_fwd_bwd_ms"] / out["step_fwd_bwd_ms"]
+    return out
+
+
+def vqvae_path(torch, ops, card, gen, mdlm_ckpt):
+    """Phase 9 (module docstring).  ``mdlm_ckpt``: the train path's
+    unpacked run, for --vqvae_ckpt.  Returns (numbers, launches of the
+    path's runs: the CLI's training and the --vqvae_ckpt sample)."""
+    from esmdiff_tpu_torch.cli import sample as sample_cli
+    from esmdiff_tpu_torch.cli import train_vqvae as vq_cli
+    from esmdiff_tpu_torch.convert import checkpoints
+    from esmdiff_tpu_torch.models.vqvae import StructureTokenDecoder
+    from esmdiff_tpu_torch.train import state as tstate
+    from esmdiff_tpu_torch.train import vqvae as tvq
+    from esmdiff_tpu_torch.utils.checkpoint import load_params
+
+    import numpy as np
+
+    t_phase = time.time()
+    fa = ops["flash_attention"]
+    work = ROOT / "output" / "chip_smoke_vqvae"
+    shutil.rmtree(work, ignore_errors=True)
+    failures = []
+    # the corpus: the chains of data/targets/{apo,codnas,ped}
+    chains = work / "chains"
+    for d in VQ_DIRS:
+        shutil.copytree(ROOT / "data/targets" / d, chains / d)
+    cfgs = vq_cli._geometry("full")
+    n_layers = cfgs[1].n_layers
+    corpus = vq_cli.load_corpus(chains, 512, log=lambda m: None)[:2]
+
+    # 1. the CLI's default batch, two steps, printed (the run takes 16)
+    probe = vq_probe(torch, tvq, tstate, cfgs, corpus, VQ_PROBE)
+    capacity = torch.cuda.get_device_properties(0).total_memory / 2**30
+    print(f"[vqvae probe] batch {VQ_PROBE}, two steps: " + (
+        "out of memory" if probe is None else f"peak {probe:.2f} GiB")
+        + f" of {capacity:.2f} GiB", flush=True)
+    batch = VQ_BATCH
+
+    # 2. esmdiff-torch-train-vqvae as it ships, but --steps
+    export = work / "export"
+    steps, vals, gathers, restarts, exports = [], [], [], [], []
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before, t0 = fa.launches, time.time()
+    with calls(torch, tstate, "train_step", fa, steps), \
+            calls(torch, tvq, "val_recon", fa, vals), \
+            calls(torch, tvq, "gather_batch", fa, gathers), \
+            calls(torch, tvq, "restart_dead_codes", fa, restarts), \
+            calls(torch, vq_cli, "export_vqvae", fa, exports):
+        summary = vq_cli.main([
+            "--input", str(chains), "--output", str(export), "--scale",
+            "full", "--steps", str(VQ_STEPS), "--batch", str(batch),
+            "--restart_every", "10", "--augment", "--seed", "0"])
+    wall = time.time() - t0
+    train_launches = fa.launches - before
+    train_gathers = [g for g in gathers if len(g["args"]) == 6]
+    warm = steps[1:]
+    warm_s = sum(r["s"] for r in warm)
+    real = sum(int(g["result"]["lengths"].sum()) for g in train_gathers[1:])
+    losses = [float(r["result"]["loss"]) for r in steps]
+    val_recon = [float(r["result"]) for r in vals]
+    numbers = {
+        "batch": batch, f"probe_{VQ_PROBE}_peak_gib": probe,
+        "card_gib": capacity, "steps": len(steps),
+        "structures": summary["n_structures"],
+        "pad_L": int(corpus[0].shape[1]), "wall_s": wall,
+        "first_step_ms": 1e3 * steps[0]["s"],
+        "warm_ms_per_step": 1e3 * warm_s / len(warm),
+        "residues_per_s": real / warm_s,
+        "padded_residues_per_s": len(warm) * batch * corpus[0].shape[1]
+        / warm_s,
+        "host_share": sum(g["s"] for g in train_gathers[1:])
+        / (warm_s + sum(g["s"] for g in train_gathers[1:])),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "resident_gib_before": resident / 2**30,
+        "export_s": exports[0]["s"],
+        "export_gib": sum(f.stat().st_size for f in export.iterdir())
+        / 2**30,
+        "flash_per_train_step": sorted({r["flash"] for r in steps}),
+        "flash_per_val_recon": [r["flash"] for r in vals],
+        "flash_launches": train_launches,
+        "losses": losses, "val_recon": val_recon,
+        "restarted": [r["result"] for r in restarts],
+        "n_live_codes": summary["n_live_codes"]}
+    if len(steps) != VQ_STEPS or numbers["flash_per_train_step"] != \
+            [2 * n_layers] or numbers["flash_per_val_recon"] != \
+            [n_layers, n_layers] or train_launches != \
+            VQ_STEPS * 2 * n_layers + 2 * n_layers:
+        failures.append(f"VQ launches: {len(steps)} steps, "
+                        f"{numbers['flash_per_train_step']} a step, "
+                        f"{numbers['flash_per_val_recon']} a val_recon, "
+                        f"{train_launches} in all")
+    if not all(math.isfinite(x) for x in losses + val_recon):
+        failures.append(f"VQ losses not finite: {losses} {val_recon}")
+    if not val_recon[-1] < val_recon[0]:
+        failures.append(f"val_recon did not fall: {val_recon}")
+    if not sum(numbers["restarted"]):
+        failures.append(f"no dead code restarted: {numbers['restarted']}")
+    vq_params = exports[0]["args"][3]
+    with torch.device("cuda"):
+        fresh = tvq.init_vqvae(tvq.VQVAE(*cfgs), 0).state_dict()
+    moved = {k: not torch.equal(vq_params[k], fresh[k]) for k in (
+        "encoder.codebook", "bridge.weight",
+        "decoder.decoder_stack.blocks.0.attn.qkv.weight")}
+    del fresh
+    numbers["params_changed"] = moved
+    if not all(moved.values()):
+        failures.append(f"VQ parameters unchanged: {moved}")
+    print("[vqvae train] " + json.dumps(numbers), flush=True)
+
+    # 3. kernel against plain in a VQ step, on the trained parameters
+    with torch.device("cuda"):
+        model = tvq.VQVAE(*cfgs)
+    model.load_state_dict(vq_params, strict=True)
+    del steps, exports, vq_params
+    torch.cuda.empty_cache()
+    idx = np.random.RandomState(0).choice(len(corpus[1]), batch)
+    vbatch = tvq.gather_batch(*corpus, idx, "cuda")
+    gate, bb_floor = vq_kernel_vs_plain(torch, fa, tvq, model, vbatch,
+                                        failures)
+    print("[vqvae gate] " + json.dumps(gate), flush=True)
+    split = vq_split_ms(torch, tvq, model, vbatch)
+    print("[vqvae split] " + json.dumps(split), flush=True)
+
+    # 4. the export: load_vqvae, the standalone decoder on full_tokens
+    enc_cfg, _, dec_cfg, dec_params = checkpoints.load_vqvae(export)
+    with torch.device("cuda"):
+        decoder = StructureTokenDecoder(dec_cfg)
+    decoder.load_state_dict(dec_params, strict=True)
+    with torch.no_grad():
+        out, aux = model(vbatch["coords"], vbatch["lengths"])
+        alone = decoder.eval()(aux["full_tokens"], compute_ptm=False)
+    export_rel = ((alone["bb_pred"].float() - out["bb_pred"].float()).norm()
+                  / out["bb_pred"].float().norm()).item()
+    export_numbers = {"cfgs_equal": (enc_cfg, dec_cfg) == cfgs,
+                      "bb_pred_rel_l2": export_rel,
+                      "bb_pred_floor": bb_floor}
+    if not export_numbers["cfgs_equal"] or not export_rel <= 2 * bb_floor:
+        failures.append(f"export: {export_numbers}")
+    del model, decoder, dec_params, out, aux, alone
+    torch.cuda.empty_cache()
+
+    # 5. --vqvae_ckpt: the train path's trunk with the trained tokenizer
+    t0 = time.time()
+    before = fa.launches
+    with recorded(checkpoints, "load_runtime") as loaded:
+        report = sample_cli.main([
+            "--ckpt", str(mdlm_ckpt), "--vqvae_ckpt", str(export), "--mode",
+            "ddpm", "--input", str(ROOT / TARGET), "--output",
+            str(work / "sample"), "--num_samples", "8", "--seed", "0"])[0]
+    rt = loaded[0]
+    saved = load_params(export)
+    own = {**{f"encoder.{k}": v for k, v in rt.encoder.state_dict().items()},
+           **{f"decoder.{k}": v for k, v in rt.decoder.state_dict().items()}}
+    differ = [k for k in saved
+              if k not in own or not torch.equal(own[k].cpu(), saved[k])]
+    if differ or own.keys() != saved.keys():
+        failures.append(f"--vqvae_ckpt runtime vs saved: {differ[:8]}")
+    pdb = work / "sample" / f"{report['target']}.pdb"
+    check_pdb(pdb.read_text(), 8, 8 * (report["L"] * 4 - 1), str(pdb))
+    want = path_launches(rt.trunk.cfg, rt.decoder.cfg.n_layers,
+                         report["L"] + 2, False,
+                         num_samples=8)["flash_attention"]
+    sample_numbers = {"s": time.time() - t0, "L": report["L"],
+                      "sampling_s": report["sampling_sec"],
+                      "params_equal_bit_for_bit": not differ,
+                      "params_compared": len(saved),
+                      "flash_launches": fa.launches - before,
+                      "flash_launches_planned": want}
+    if sample_numbers["flash_launches"] != want:
+        failures.append(f"--vqvae_ckpt sample launches {sample_numbers}")
+    del rt, loaded, own, saved
+    torch.cuda.empty_cache()
+
+    # 6. the flash kernel at the decoder's VQ shape (and B 32), printed
+    kernel = [check_flash_unmasked(torch, fa, b, corpus[0].shape[1] + 2,
+                                   cfgs[1].n_heads, gen)
+              for b in sorted({batch, 32})]
+    for row in kernel:
+        print("[kernel] flash_attention vqvae " + json.dumps(row),
+              flush=True)
+    shutil.rmtree(work)
+    shutil.rmtree(mdlm_ckpt.parent.parent)
+    numbers = {"card": card, "phase_s": time.time() - t_phase,
+               "train": numbers, "gate": gate, "split": split,
+               "export": export_numbers,
+               "vqvae_ckpt": sample_numbers, "flash_vq_shape": kernel,
+               "launches": {"flash_attention": train_launches
+                            + sample_numbers["flash_launches"]}}
+    if failures:
+        print("[vqvae path] " + json.dumps(numbers), flush=True)
+        raise AssertionError("vqvae path: " + "; ".join(failures))
+    return numbers, numbers["launches"]
 
 
 def main() -> int:
@@ -1919,18 +2324,29 @@ def main() -> int:
     # 8. the train path: a corpus through cli.dump, an unpacked epoch and
     # a packed run of configs/mdlm.yaml at full width, kernel vs plain in
     # a train step, --ckpt through the sampling CLI
-    t_numbers, t_launches = train_path(torch, runtime, ops, card)
+    t_numbers, t_launches, mdlm_ckpt = train_path(torch, runtime, ops, card)
     print("[train path] " + json.dumps(t_numbers), flush=True)
 
-    # 9. the kernels line (headline shape: the trunk's), the device line;
+    # 9. the vqvae path: the tokenizer trained at full geometry through
+    # esmdiff-torch-train-vqvae, kernel vs plain in a VQ step, the export,
+    # --vqvae_ckpt with the train path's trunk; the earlier runtimes are
+    # freed first (the encoder's activations need the room)
+    del runtime, fused_rt, fused_trunk, stock_rt, layer0
+    gc.collect()
+    torch.cuda.empty_cache()
+    v_numbers, v_launches = vqvae_path(torch, ops, card, gen, mdlm_ckpt)
+    print("[vqvae path] " + json.dumps(v_numbers), flush=True)
+
+    # 10. the kernels line (headline shape: the trunk's), the device line;
     # launches from the paths that run the kernel, fused_ffn's from its
     # phase (no model path runs it)
     by_path = {"default path": launches, "fused path": f_launches,
                "gibbs path": g_launches, "serve path": s_launches,
                "inpaint path": i_launches,
-               "train path": {**dict.fromkeys(KERNELS, 0), **t_launches}}
+               "train path": {**dict.fromkeys(KERNELS, 0), **t_launches},
+               "vqvae path": {**dict.fromkeys(KERNELS, 0), **v_launches}}
     launches_from = {"flash_attention": ("default path", "inpaint path",
-                                         "train path"),
+                                         "train path", "vqvae path"),
                      "small_attention": ("fused path",),
                      "fused_qkv": ("fused path",)}
     entries = []

@@ -14,9 +14,13 @@ projects each decoded CA trace into the bond/clash validity band.
 Inpainting: ``--mask_ids`` (residues to generate; ddpm and gibbs) or
 ``--filled_ids`` (residues to keep; ddpm) condition the ensemble on the
 target's structure through the VQ-VAE encoder.  ``--ckpt`` loads a
-training run of the port (``convert/checkpoints.py``); ``--vqvae_ckpt``,
-the JAX package's checkpoints, profiling and data parallelism are not
-ported yet and raise.
+training run of the port (``convert/checkpoints.py``), paired with a
+trained VQ-VAE by ``--vqvae_ckpt`` (``esmdiff-torch-train-vqvae``'s export;
+without ``--ckpt`` it exits with an error).  With several ``--input``
+directories each target lands in ``<output>/<dir name>/``, names that
+collide qualified by their parents (``a--targets``, ``b--targets``).  The
+JAX package's checkpoints, profiling and data parallelism are not ported
+yet and raise.
 
     python -m esmdiff_tpu_torch.cli.sample --input data/targets/bpti \\
         --output output/torch --mode gibbs --num_steps 16 --num_samples 100
@@ -51,10 +55,12 @@ def build_runtime(args) -> ESM3Runtime:
     weights at ``--model_scale``: the fine-tune structure head for ddpm,
     the stock multi-track head for gibbs and eb.  With ``--quant int8`` the
     trunk is quantized from its float32 weights."""
-    if args.vqvae_ckpt:
-        _not_ported("--vqvae_ckpt (a trained VQ-VAE)")
+    if args.vqvae_ckpt and not args.ckpt:
+        raise SystemExit("--vqvae_ckpt pairs a trained VQ-VAE with a "
+                         "trunk: it needs --ckpt")
     if args.ckpt:
-        runtime = checkpoints.load_runtime(args.ckpt, device=args.device)
+        runtime = checkpoints.load_runtime(
+            args.ckpt, vqvae_ckpt=args.vqvae_ckpt, device=args.device)
         return runtime.quantize(args.quant) if args.quant != "none" \
             else runtime
     print("[warning] no --ckpt given: sampling with RANDOM weights "
@@ -81,7 +87,9 @@ def get_argparser():
                    default=["data/targets/bpti"],
                    help="Directories of target .pdb files.")
     p.add_argument("--ckpt", type=str, default=None)
-    p.add_argument("--vqvae_ckpt", type=str, default=None)
+    p.add_argument("--vqvae_ckpt", type=str, default=None,
+                   help="Trained VQ-VAE dir (convert.checkpoints.save_vqvae "
+                        "layout) to pair with --ckpt.")
     p.add_argument("--output", type=str, default="output/inference_esmdiff")
     p.add_argument("--mode", type=str, default="gibbs",
                    choices=["gibbs", "ddpm", "eb"],
@@ -143,7 +151,8 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
     data_paths = [Path(p) for p in args.input]
     for dp in data_paths:
         assert dp.is_dir(), f"--input must be a directory: {dp}"
-    if len({dp.resolve() for dp in data_paths}) != len(data_paths):
+    resolved = [dp.resolve() for dp in data_paths]
+    if len(set(resolved)) != len(resolved):
         raise SystemExit("--input lists the same directory twice")
     multi_input = len(data_paths) > 1
     output_dir = Path(args.output)
@@ -162,15 +171,20 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
                   if args.filled_ids else None)
 
     targets = []
-    for dp in data_paths:
-        sub = output_dir / dp.resolve().name if multi_input else output_dir
+    for dp, rp in zip(data_paths, resolved):
+        sub = output_dir / subdir_name(rp, resolved) if multi_input \
+            else output_dir
         sub.mkdir(parents=True, exist_ok=True)
         targets += [(p, sub) for p in sorted(dp.iterdir())
                     if p.suffix == ".pdb"]
+    # a --skip_existing resume merges into the earlier report; rows from
+    # before the report had keys are keyed by their target
     timings_path = output_dir / "timings.json"
     prior: dict[str, dict] = {}
     if args.skip_existing and timings_path.exists():
-        prior = {r["key"]: r for r in json.loads(timings_path.read_text())}
+        for r in json.loads(timings_path.read_text()):
+            r.setdefault("key", r["target"])
+            prior[r["key"]] = r
     report = []
     for path, out_dir_t in targets:
         key = f"{out_dir_t.name}/{path.stem}" if multi_input else path.stem
@@ -227,6 +241,22 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
     timings_path.write_text(
         json.dumps(sorted(prior.values(), key=lambda r: r["key"]), indent=2))
     return report
+
+
+def subdir_name(rp: Path, resolved: list[Path]) -> str:
+    """The output subdirectory of the resolved input directory ``rp``
+    among ``resolved``: its name, or, where names collide, its path's
+    last k parts joined by ``--`` for the least k that tells every
+    colliding directory apart.  It depends on the paths alone, not on
+    their order, so a resume with the directories reordered maps each to
+    the same subdirectory."""
+    same = [p for p in resolved if p.name == rp.name]
+    if len(same) == 1:
+        return rp.name
+    k = 2
+    while len({"--".join(p.parts[-k:]) for p in same}) != len(same):
+        k += 1
+    return "--".join(rp.parts[-k:]).replace("/", "--")
 
 
 def refine_in_place(prots: list[ESMProtein], device) -> None:

@@ -7,25 +7,42 @@ entry in ``index.json``) or one ``step_N`` directory, with the run's
 ``config.yaml`` beside it, from which the trunk and the sigma embedder are
 rebuilt.  The parameters are loaded as saved (float32), as the JAX runtime
 holds its params; each module casts its matmul weights at use.  The VQ-VAE
-encoder and decoder have no trained source and are random weights
-(seed 0), as in JAX.
+encoder and decoder are those of ``vqvae_ckpt`` (a ``save_vqvae``
+directory, e.g. ``esmdiff-torch-train-vqvae``'s export), loaded the same
+way, or else random weights (seed 0), as in JAX.
 
-Not ported yet, and raising: the JAX package's orbax run directories, a
-PyTorch ESM3 trunk file (``torch_to_jax``) and ``vqvae_ckpt``.
+``save_vqvae``/``load_vqvae`` keep the JAX layout's ``vqvae.json``
+(``encoder_cfg``, ``decoder_cfg``) beside ``params.pt`` (the port's
+``utils/checkpoint.py``) in place of orbax's ``params/``.
+
+Not ported yet, and raising: the JAX package's orbax run and VQ-VAE
+directories, and a PyTorch ESM3 trunk file (``torch_to_jax``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
-from typing import Optional
+from typing import Mapping, Optional
+
+import torch
 
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime
+from esmdiff_tpu_torch.convert import load_flax_params
 from esmdiff_tpu_torch.device import resolve_device
-from esmdiff_tpu_torch.models.vqvae import DecoderConfig, EncoderConfig
+from esmdiff_tpu_torch.models.vqvae import (DecoderConfig, EncoderConfig,
+                                            StructureTokenDecoder,
+                                            StructureTokenEncoder)
 from esmdiff_tpu_torch.train.config import load_config
 from esmdiff_tpu_torch.train.loop import build_mdlm, mdlm_modules
-from esmdiff_tpu_torch.utils.checkpoint import PARAMS, load_params
+from esmdiff_tpu_torch.train.vqvae import VQVAE, sub_state_dict
+from esmdiff_tpu_torch.utils.checkpoint import (PARAMS, load_params,
+                                                save_params)
+
+VQVAE_JSON = "vqvae.json"
+# DecoderConfig fields of the JAX package that mean nothing here
+_JAX_ONLY_DECODER_FIELDS = ("scan_layers",)
 
 
 def _not_ported(what: str):
@@ -53,12 +70,69 @@ def _run_step_dir(path: str | Path) -> tuple[Path, Path]:
                 "checkpoint (torch_to_jax)")
 
 
+def save_vqvae(out_dir, encoder_cfg: EncoderConfig, encoder_params: Mapping,
+               decoder_cfg: DecoderConfig, decoder_params: Mapping) -> None:
+    """Persist a (trained) VQ-VAE pair: ``params.pt`` (``encoder.*``,
+    ``decoder.*``, as held) + ``vqvae.json`` (the geometry)."""
+    out = Path(out_dir).absolute()
+    out.mkdir(parents=True, exist_ok=True)
+    save_params(out, {**{f"encoder.{k}": v for k, v in encoder_params.items()},
+                      **{f"decoder.{k}": v for k, v in decoder_params.items()}})
+    (out / VQVAE_JSON).write_text(json.dumps({
+        "encoder_cfg": dataclasses.asdict(encoder_cfg),
+        "decoder_cfg": dataclasses.asdict(decoder_cfg),
+    }, indent=2))
+
+
+def read_vqvae_json(path) -> tuple[EncoderConfig, DecoderConfig]:
+    """The geometry of a ``vqvae.json`` (the port's or the JAX package's,
+    whose ``scan_layers`` is dropped)."""
+    meta = json.loads(Path(path).read_text())
+    dec = {k: v for k, v in meta["decoder_cfg"].items()
+           if k not in _JAX_ONLY_DECODER_FIELDS}
+    return EncoderConfig(**meta["encoder_cfg"]), DecoderConfig(**dec)
+
+
+def load_vqvae(ckpt_dir):
+    """-> (encoder_cfg, encoder_params, decoder_cfg, decoder_params), the
+    params as state dicts of CPU tensors, as saved."""
+    path = Path(ckpt_dir).absolute()
+    if not (path / PARAMS).exists() and (path / "params").is_dir():
+        _not_ported(f"loading {path}: an orbax VQ-VAE checkpoint of the JAX "
+                    "package")
+    enc_cfg, dec_cfg = read_vqvae_json(path / VQVAE_JSON)
+    params = load_params(path)
+    return (enc_cfg, sub_state_dict(params, "encoder."), dec_cfg,
+            sub_state_dict(params, "decoder."))
+
+
+def vqvae_modules(vqvae_ckpt, device=None):
+    """(encoder, decoder) holding ``vqvae_ckpt``'s parameters on
+    ``device``, float32 as saved (each module casts at use)."""
+    enc_cfg, enc_params, dec_cfg, dec_params = load_vqvae(vqvae_ckpt)
+    with torch.device(resolve_device(device)):
+        encoder = StructureTokenEncoder(enc_cfg)
+        decoder = StructureTokenDecoder(dec_cfg)
+    encoder.load_state_dict(enc_params, strict=True)
+    decoder.load_state_dict(dec_params, strict=True)
+    return encoder, decoder
+
+
+def vqvae_from_flax(enc_cfg: EncoderConfig, dec_cfg: DecoderConfig,
+                    tree: Mapping, device="cpu") -> VQVAE:
+    """The port's ``train.vqvae.VQVAE`` holding a JAX ``VQVAE`` param tree
+    (nested dicts of numpy arrays), loaded strictly, float32."""
+    with torch.device(device):
+        model = VQVAE(enc_cfg, dec_cfg)
+    return load_flax_params(model, tree)
+
+
 def load_runtime(ckpt_path: str | Path, vqvae_ckpt: Optional[str] = None,
                  device=None) -> ESM3Runtime:
     """An ``ESM3Runtime`` whose trunk and sigma embedder hold the saved
-    parameters of a training run of the port; see the module docstring."""
-    if vqvae_ckpt:
-        _not_ported("--vqvae_ckpt (a trained VQ-VAE)")
+    parameters of a training run of the port, and whose encoder and
+    decoder those of ``vqvae_ckpt`` when given; see the module
+    docstring."""
     step_dir, run_dir = _run_step_dir(ckpt_path)
     cfg_file = run_dir / "config.yaml"
     if not cfg_file.exists():
@@ -68,6 +142,13 @@ def load_runtime(ckpt_path: str | Path, vqvae_ckpt: Optional[str] = None,
     dev = resolve_device(device)
     mdlm = build_mdlm(cfg, dev)
     mdlm_modules(mdlm).load_state_dict(load_params(step_dir), strict=True)
+    if vqvae_ckpt:
+        # every module has saved weights: no random init to throw away
+        encoder, decoder = vqvae_modules(vqvae_ckpt, dev)
+        print(f"[load_runtime] trained VQ-VAE from {vqvae_ckpt}; restored "
+              f"the trunk and sigma embedder from {step_dir}")
+        return ESM3Runtime(mdlm.net, decoder, mdlm.sigma_embedder,
+                           device=dev, encoder=encoder)
     if cfg.model.size == "tiny":
         runtime = ESM3Runtime.random_init(
             trunk_cfg=mdlm.net.cfg, device=dev,

@@ -1,7 +1,8 @@
 """Protein structure container + PDB I/O (the subset the ddpm slice uses).
 
 The port's copy of ``esmdiff_tpu/core/protein.py``: the ``Protein``
-container, backbone -> atom37 with inferred carbonyl oxygens, the pure-Python
+container (with its N/CA/C and CA views), backbone -> atom37 with inferred
+carbonyl oxygens, the pure-Python
 PDB parser, and the multi-MODEL ensemble writer.  Pure numpy.
 """
 
@@ -45,6 +46,17 @@ class Protein:
     def sequence(self) -> str:
         rts = rc.restypes + ["X"]
         return "".join(rts[min(a, rc.restype_num)] for a in self.aatype)
+
+    def backbone_coords(self) -> np.ndarray:
+        """(L, 3, 3) N/CA/C coordinates, NaN where missing."""
+        idx = list(rc.BACKBONE_ATOM_INDICES)
+        coords = self.atom_positions[:, idx, :].astype(np.float32).copy()
+        coords[~(self.atom_mask[:, idx] > 0.5)] = np.nan
+        return coords
+
+    def ca_coords(self) -> np.ndarray:
+        return self.atom_positions[:, rc.atom_order["CA"], :].astype(
+            np.float32)
 
 
 def from_backbone(

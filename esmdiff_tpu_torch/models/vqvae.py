@@ -156,12 +156,16 @@ class DecoderConfig:
     trans_scale: float = 10.0
     predict_ptm: bool = True
     dtype: str = "bfloat16"
+    # recompute every block in the backward: off for inference, on for the
+    # VQ-VAE trainer's full geometry (activation memory)
+    remat: bool = False
     quant: str = "none"  # "int8" = W8A8 stack projections (ops/quant.py)
 
     def stack_config(self) -> ESM3Config:
         return ESM3Config(d_model=self.d_model, n_heads=self.n_heads,
                           v_heads=0, n_layers=self.n_layers, n_layers_geom=0,
-                          dtype=self.dtype, quant=self.quant)
+                          dtype=self.dtype, remat=self.remat,
+                          quant=self.quant)
 
 
 class Dim6RotStructureHead(nn.Module):
@@ -192,11 +196,18 @@ class Dim6RotStructureHead(nn.Module):
 
 
 class StructureTokenDecoder(nn.Module):
-    def __init__(self, cfg: DecoderConfig = DecoderConfig()):
+    """embed=False builds the decoder without its token table: the VQ-VAE
+    trainer (``train/vqvae.py``) always feeds ``inputs_embeds`` and
+    materializes the table at export, so it never owns (or decays) one,
+    as the JAX decoder never creates it in that mode."""
+
+    def __init__(self, cfg: DecoderConfig = DecoderConfig(),
+                 embed: bool = True):
         super().__init__()
         self.cfg = cfg
         dt = torch_dtype(cfg.dtype)
-        self.embed = Embed(C.STRUCTURE_VOCAB_SIZE, cfg.d_model, dtype=dt)
+        self.embed = (Embed(C.STRUCTURE_VOCAB_SIZE, cfg.d_model, dtype=dt)
+                      if embed else None)
         self.decoder_stack = TransformerStack(cfg.stack_config())
         self.affine_output_projection = Dim6RotStructureHead(
             cfg.d_model, trans_scale=cfg.trans_scale, dtype=dt)
@@ -207,9 +218,12 @@ class StructureTokenDecoder(nn.Module):
             self.pae_k = Dense(cfg.d_model, cfg.pae_bins, dtype=dt)
 
     def forward(self, structure_tokens, compute_ptm: bool = True,
-                lengths=None):
+                lengths=None, inputs_embeds=None):
         """(B, L) int tokens -> dict(bb_pred (B, L, 3, 3), plddt (B, L)
         [, ptm (B,)]).
+
+        inputs_embeds: optional (B, L, d_model) inputs in place of the
+        token lookup (the VQ-VAE trainer's straight-through codes).
 
         lengths: optional (B,) valid prefix lengths.  Attention then masks
         keys past each row's length: for every valid query that is the key
@@ -218,7 +232,8 @@ class StructureTokenDecoder(nn.Module):
         garbage and are stripped by the caller).
         """
         cfg = self.cfg
-        x = self.embed(structure_tokens)
+        x = (self.embed(structure_tokens) if inputs_embeds is None
+             else inputs_embeds.to(torch_dtype(cfg.dtype)))
         x, _ = self.decoder_stack(x, lengths=lengths)
         out = {"bb_pred": self.affine_output_projection(x)}
         plddt_logits = self.plddt_head(x)

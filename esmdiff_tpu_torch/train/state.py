@@ -7,7 +7,8 @@ over a mesh; on one device ``ddp`` and ``zero2`` are the plain step, and
 the others (``fsdp``, ``dpNxtpM``, ``ppS``) are not ported yet.
 
 optax semantics kept where PyTorch's differ:
-  - ``linear_schedule(0, lr, warmup_steps)`` is evaluated at the count of
+  - ``linear_schedule(0, lr, warmup_steps)``, or the VQ-VAE trainer's
+    ``warmup_cosine_decay_schedule``, is evaluated at the count of
     updates already made, so the first update has lr 0;
   - ``clip_by_global_norm(max)`` scales by max / ||g|| only when
     ||g|| >= max (``clip_grad_norm_`` adds 1e-6 to the norm);
@@ -18,6 +19,7 @@ optax semantics kept where PyTorch's differ:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -26,32 +28,63 @@ from torch import nn
 STRATEGIES = ("ddp", "zero2")
 
 
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0
+                                 ) -> Callable[[int], float]:
+    """optax's schedule of the same name: a linear warmup from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then a cosine
+    decay to ``end_value`` at ``decay_steps`` (warmup included), flat
+    after it."""
+    if not decay_steps - warmup_steps > 0:
+        raise ValueError(f"the cosine decay needs decay_steps "
+                         f"({decay_steps}) > warmup_steps ({warmup_steps})")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return ((init_value - peak_value) * (1 - count / warmup_steps)
+                    + peak_value)
+        t = min(count - warmup_steps, decay_steps - warmup_steps)
+        cosine = 0.5 * (1 + math.cos(math.pi * t
+                                     / (decay_steps - warmup_steps)))
+        return peak_value * ((1 - alpha) * cosine + alpha)
+
+    return schedule
+
+
 @dataclasses.dataclass
 class Optimizer:
     """AdamW (b1 0.9, b2 0.999, eps 1e-8) with an optional linear warmup
-    from 0 and an optional global-norm clip."""
+    from 0, or a ``schedule`` of the update count, and an optional
+    global-norm clip."""
 
     adamw: torch.optim.AdamW
     lr: float
     warmup_steps: int = 0
     grad_clip: Optional[float] = None
+    schedule: Optional[Callable[[int], float]] = None
 
     def lr_at(self, count: int) -> float:
-        """optax ``linear_schedule(0, lr, warmup_steps)`` after ``count``
-        updates (constant ``lr`` without warmup)."""
+        """The lr after ``count`` updates: ``schedule(count)``, else optax
+        ``linear_schedule(0, lr, warmup_steps)`` (constant ``lr`` without
+        warmup)."""
+        if self.schedule is not None:
+            return self.schedule(count)
         if self.warmup_steps <= 0:
             return self.lr
         return self.lr * min(count, self.warmup_steps) / self.warmup_steps
 
 
 def make_optimizer(params, lr: float = 1e-5, weight_decay: float = 0.01,
-                   warmup_steps: int = 0,
-                   grad_clip: Optional[float] = None) -> Optimizer:
+                   warmup_steps: int = 0, grad_clip: Optional[float] = None,
+                   schedule: Optional[Callable[[int], float]] = None
+                   ) -> Optimizer:
     """AdamW over ``params`` with decay on every parameter (optax.adamw with
     no mask)."""
     adamw = torch.optim.AdamW(list(params), lr=lr, betas=(0.9, 0.999),
                               eps=1e-8, weight_decay=weight_decay)
-    return Optimizer(adamw, lr, warmup_steps, grad_clip)
+    return Optimizer(adamw, lr, warmup_steps, grad_clip, schedule)
 
 
 @dataclasses.dataclass

@@ -5,7 +5,8 @@ orbax.  ``save`` writes the whole train state into ``step_N/``: the
 parameters (``params.pt``, the model's state dict in float32), the
 optimizer state (``optimizer.pt``) and the step (``state.json``), in
 separate files so that a sampler loads the parameters alone
-(``load_params``, memory-mapped).  ``index.json`` keeps the JAX layout: a
+(``load_params``, memory-mapped; ``save_params`` writes such a file on its
+own, as the VQ-VAE export does).  ``index.json`` keeps the JAX layout: a
 list of {"step", "metric", "path"}, best metric first, at most
 ``save_top_k`` entries; a pruned entry's directory is deleted.
 """
@@ -19,6 +20,14 @@ from pathlib import Path
 import torch
 
 PARAMS, OPTIMIZER, STATE = "params.pt", "optimizer.pt", "state.json"
+
+
+def save_params(directory: str | Path, state_dict) -> Path:
+    """Write ``state_dict`` (CPU copies, as held) to ``directory/params.pt``
+    and return the file's path."""
+    path = Path(directory) / PARAMS
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+    return path
 
 
 def load_params(step_dir: str | Path) -> dict:

@@ -15,6 +15,7 @@ from esmdiff_tpu_torch.cli import dump as dump_cli
 from esmdiff_tpu_torch.cli import sample as cli
 from esmdiff_tpu_torch.cli import serve as serve_cli
 from esmdiff_tpu_torch.cli import train as train_cli
+from esmdiff_tpu_torch.cli import train_vqvae as train_vqvae_cli
 from esmdiff_tpu_torch.models.esm3 import esm3_tiny
 from esmdiff_tpu_torch.models.vqvae import DecoderConfig
 
@@ -89,6 +90,28 @@ def test_training_modules_import_without_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_tokenizer_modules_import_without_jax():
+    """The tokenizer slice's modules by name, with jax, flax, optax and
+    orbax blocked: the VQ-VAE trainer, its CLI, the conformers, the
+    checkpoints' save_vqvae/load_vqvae and the sampling CLI."""
+    probe = ("import sys\n"
+             "for m in ('jax', 'flax', 'optax', 'orbax', "
+             "'orbax.checkpoint'):\n    sys.modules[m] = None\n"
+             "import esmdiff_tpu_torch.train.vqvae"
+             ", esmdiff_tpu_torch.cli.train_vqvae"
+             ", esmdiff_tpu_torch.train.conformers"
+             ", esmdiff_tpu_torch.cli.sample\n"
+             "from esmdiff_tpu_torch.convert.checkpoints import (save_vqvae, "
+             "load_vqvae, read_vqvae_json, vqvae_from_flax)\n"
+             "from esmdiff_tpu_torch.train.vqvae import (VQVAE, train_vqvae, "
+             "export_vqvae, restart_dead_codes, augment_batch)\n"
+             "assert not [m for m in sys.modules if m == 'esmdiff_tpu' or "
+             "m.startswith('esmdiff_tpu.')]\n")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
 def test_no_jax_import_lines():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|esmdiff_tpu)\b")
     files = sorted((ROOT / "esmdiff_tpu_torch").rglob("*.py"))
@@ -126,6 +149,19 @@ def test_train_cli_without_device_raises(no_cuda, tmp_path):
         train_cli.main(["--config", str(ROOT / "configs/mdlm_smoke.yaml"),
                         f"trainer.ckpt_dir={tmp_path}/run"])
     assert not (tmp_path / "run").exists()
+
+
+def test_train_vqvae_cli_without_device_raises(no_cuda, tmp_path):
+    """esmdiff-torch-train-vqvae without --device cpu and no card raises
+    before it reads the corpus or writes anything; --data_parallel is
+    not ported."""
+    args = ["--input", str(ROOT / "data/targets/bpti"), "--output",
+            str(tmp_path / "vq"), "--scale", "tiny", "--steps", "1"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_vqvae_cli.main(args)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        train_vqvae_cli.main([*args, "--device", "cpu", "--data_parallel"])
+    assert not (tmp_path / "vq").exists()
 
 
 def test_server_without_device_raises(no_cuda):

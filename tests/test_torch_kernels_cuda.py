@@ -498,3 +498,109 @@ def test_train_step_card_matches_cpu(gen):
     assert state.step == 1
     assert all(not torch.equal(p.detach(), before[n])
                for n, p in modules.named_parameters() if before[n].any())
+
+
+def test_flash_attention_vq_shape_autograd_on_card(gen):
+    """The flash kernel at the VQ-VAE decoder's training shape (B 2, L 514,
+    H 20, no lengths) through ``FlashAttentionFunction``: one launch, the
+    output against the plain version at the bf16 tolerances, and dq, dk,
+    dv equal to autograd through ``plain_attention_with_lengths`` (the
+    backward recomputes there)."""
+    from esmdiff_tpu_torch.nn.attention import plain_attention_with_lengths
+
+    q, k, v = (torch.randn(2, 514, 20, 64, device="cuda",
+                           dtype=torch.bfloat16, generator=gen)
+               .requires_grad_() for _ in range(3))
+    grad = torch.randn(2, 514, 20, 64, device="cuda", dtype=torch.bfloat16,
+                       generator=gen)
+    before = fa.launches
+    out = fa.FlashAttentionFunction.apply(q, k, v, None)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref = fa.flash_attention_reference(q.detach(), k.detach(), v.detach())
+    diff = (out.detach().float() - ref.float()).abs()
+    assert torch.isfinite(out).all()
+    assert diff.max().item() <= TOL_MAX and diff.mean().item() <= TOL_MEAN
+    got = torch.autograd.grad(out, (q, k, v), grad)
+    want = torch.autograd.grad(plain_attention_with_lengths(q, k, v),
+                               (q, k, v), grad)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_vq_step_card_matches_cpu(gen):
+    """One VQ-VAE train step (forward, backward, AdamW) at a small
+    geometry whose decoder takes the kernel (d 128, 2 heads of 64, bf16,
+    remat; encoder d 64, float32) on the card against the same weights
+    and batch on the CPU: flash 2 x 2 launches (forward + recompute);
+    loss and grad norm within 1e-2 relative; every parameter's gradient
+    within twice the spread between the card's plain path
+    (attn_backend="xla") and the CPU, or 1e-2, in relative L2."""
+    import copy
+
+    import numpy as np
+
+    from esmdiff_tpu_torch.models.vqvae import DecoderConfig, EncoderConfig
+    from esmdiff_tpu_torch.train import state as tstate
+    from esmdiff_tpu_torch.train import vqvae as tvq
+
+    enc = EncoderConfig(d_model=64, n_heads=2, v_heads=8, n_layers=2,
+                        d_out=16, n_codes=64, knn=8)
+    dec = DecoderConfig(d_model=128, n_heads=2, n_layers=2,
+                        dtype="bfloat16", predict_ptm=False, remat=True)
+    with torch.device("cuda"):
+        model = tvq.init_vqvae(tvq.VQVAE(enc, dec), 0)
+    cpu_model = copy.deepcopy(model).cpu()
+    rs = np.random.RandomState(0)
+    t = np.arange(62)
+    coords = []
+    for _ in range(4):
+        ca = np.stack([2.3 * np.cos(0.6 * t + rs.rand() * 6),
+                       2.3 * np.sin(0.6 * t + rs.rand() * 6), 1.5 * t], -1)
+        coords.append(np.stack([ca + [1.2, 0.3, -0.4], ca,
+                                ca + [-0.8, 1.0, 0.5]], 1)
+                      + rs.randn(62, 3, 3) * 0.1)
+    coords = np.asarray(coords, np.float32)
+    lengths = np.asarray([62, 50, 40, 13], np.int32)
+    for i, L in enumerate(lengths):
+        coords[i, L:] = np.nan
+    idx = np.arange(4)
+    loss_cfg = tvq.VQLossConfig()
+
+    def grads(m, device):
+        m.zero_grad(set_to_none=True)
+        loss, _ = tvq.batch_loss(
+            m, tvq.gather_batch(coords, lengths, idx, device), loss_cfg)
+        loss.backward()
+        return loss.item(), {n: p.grad.float().cpu()
+                             for n, p in m.named_parameters()
+                             if p.grad is not None}
+
+    cpu_loss, cpu_grads = grads(cpu_model, "cpu")
+    blocks = model.decoder.decoder_stack.blocks
+    for block in blocks:
+        block.attn.attn_backend = "xla"
+    _, xla_grads = grads(model, "cuda")
+    for block in blocks:
+        block.attn.attn_backend = "auto"
+    state = tstate.create_train_state(model, tstate.make_optimizer(
+        model.parameters(), lr=1e-4))
+    launches = fa.launches
+    metrics = tstate.train_step(
+        state, lambda b, d: tvq.batch_loss(model, b, loss_cfg),
+        tvq.gather_batch(coords, lengths, idx, "cuda"), None)
+    torch.cuda.synchronize()
+    assert fa.launches - launches == 2 * dec.n_layers
+    card_grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    cpu_norm = tstate.global_norm(list(cpu_grads.values())).item()
+    assert abs(metrics["loss"].item() - cpu_loss) <= 1e-2 * abs(cpu_loss)
+    assert abs(metrics["grad_norm"].item() - cpu_norm) <= 1e-2 * cpu_norm
+    for n, g_cpu in cpu_grads.items():
+        assert torch.isfinite(card_grads[n]).all()
+        assert rel(card_grads[n], g_cpu) <= max(
+            2 * rel(xla_grads[n], g_cpu), 1e-2), n
+    assert state.step == 1

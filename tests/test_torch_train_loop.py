@@ -238,9 +238,16 @@ def test_unported_training_raises(corpus, tmp_path, override, match):
 
 
 def test_unported_loading_raises(smoke_run, tmp_path):
+    """A JAX package's orbax VQ-VAE directory (vqvae.json beside
+    ``params/``) as --vqvae_ckpt, its orbax run directories and a PyTorch
+    trunk file raise "not ported"; so does remat_policy "dots"."""
     _, run = smoke_run
-    with pytest.raises(NotImplementedError, match="not ported"):
-        checkpoints.load_runtime(run / "ckpt", vqvae_ckpt="/x/vqvae",
+    jax_vq = tmp_path / "jax_vqvae"
+    (jax_vq / "params").mkdir(parents=True)
+    (jax_vq / "vqvae.json").write_text(
+        '{"encoder_cfg": {}, "decoder_cfg": {"scan_layers": true}}')
+    with pytest.raises(NotImplementedError, match="orbax.*not ported"):
+        checkpoints.load_runtime(run / "ckpt", vqvae_ckpt=str(jax_vq),
                                  device="cpu")
     (tmp_path / "orbax").mkdir()
     with pytest.raises(NotImplementedError, match="orbax.*not ported"):
