@@ -96,8 +96,27 @@ Phases, each of which fails loudly (no error is caught):
      whole gradient and three parameters' gradients within twice the
      spread of two plain roundings); cli.sample --ckpt on the unpacked
      run (trunk parameters equal the saved ones bit for bit, a finite
-     8-MODEL PDB of BPTI); the run is kept for phase 9;
-  9. the vqvae path, with the earlier runtimes freed: two probe steps at
+     8-MODEL PDB of BPTI); the run is kept for phases 9 and 10;
+  9. the AR path, with the default path's runtime (its trunk gives the
+     embeddings, its decoder the structures):
+     esmdiff-torch-sample-ar --config configs/clm.yaml, then
+     configs/jlm.yaml (random weights from seed 0 at full width: CLM
+     12 + 12 layers, d 1280, 437 M; JLM 48 layers, d 1280, 961 M), at
+     the CLI's defaults (configs/predict.yaml: 100 samples, batch 32,
+     T 1.0, top-p 0.95) on both targets, each a 100-MODEL PDB with exact
+     launches (flash: 48 for the trunk forward + 30 a decode chunk of
+     32), no structure special sampled; on BPTI's first batch the cached
+     decode's logits against the teacher-forced forward (within twice the
+     spread of two bf16 roundings: the forward with its Dense products
+     accumulated as float32 products of the same operands), a decode
+     step's host and device ms (tools/timing.py's host_ms, torch.profiler
+     kernel time, a CUDA graph of the step on device_ms) beside its byte
+     bound; one --quant int8 request a model on BPTI (32 samples: int8
+     launches exact, its logits against bf16); after phase 10, one CLM
+     request with --runtime_ckpt (the train path's run) and --vqvae_ckpt
+     (the export; the decoder equal to it bit for bit), then both runs
+     are deleted;
+ 10. the vqvae path, with the earlier runtimes freed: two probe steps at
      the CLI's default batch 32 (peak GiB printed), then, at batch 16,
      esmdiff-torch-train-vqvae --scale full (encoder d 1024,
      k 16, 4096 codes, float32; decoder d 1280 x 30, bf16, remat; AdamW
@@ -117,7 +136,7 @@ Phases, each of which fails loudly (no error is caught):
      runtime's encoder and decoder equal the saved tensors bit for bit, a
      finite 8-MODEL PDB, exact launches; the flash kernel's device time
      at the decoder's VQ shapes (unmasked), beside its bound and SDPA;
- 10. print the card, each path's numbers, the kernels line, and as the
+ 11. print the card, each path's numbers, the kernels line, and as the
      last line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA card or without the
 rest of the repo beside it.
@@ -1937,9 +1956,10 @@ def vq_split_ms(torch, tvq, model, batch, reps=3):
 
 
 def vqvae_path(torch, ops, card, gen, mdlm_ckpt):
-    """Phase 9 (module docstring).  ``mdlm_ckpt``: the train path's
+    """Phase 10 (module docstring).  ``mdlm_ckpt``: the train path's
     unpacked run, for --vqvae_ckpt.  Returns (numbers, launches of the
-    path's runs: the CLI's training and the --vqvae_ckpt sample)."""
+    path's runs: the CLI's training and the --vqvae_ckpt sample, the
+    export), leaving its work directory for the AR path."""
     from esmdiff_tpu_torch.cli import sample as sample_cli
     from esmdiff_tpu_torch.cli import train_vqvae as vq_cli
     from esmdiff_tpu_torch.convert import checkpoints
@@ -2115,8 +2135,6 @@ def vqvae_path(torch, ops, card, gen, mdlm_ckpt):
     for row in kernel:
         print("[kernel] flash_attention vqvae " + json.dumps(row),
               flush=True)
-    shutil.rmtree(work)
-    shutil.rmtree(mdlm_ckpt.parent.parent)
     numbers = {"card": card, "phase_s": time.time() - t_phase,
                "train": numbers, "gate": gate, "split": split,
                "export": export_numbers,
@@ -2126,7 +2144,355 @@ def vqvae_path(torch, ops, card, gen, mdlm_ckpt):
     if failures:
         print("[vqvae path] " + json.dumps(numbers), flush=True)
         raise AssertionError("vqvae path: " + "; ".join(failures))
-    return numbers, numbers["launches"]
+    return numbers, numbers["launches"], export
+
+
+# the AR path: cli.sample_ar as it ships (configs/predict.yaml's inference
+# block: 100 samples, batch 32, temperature 1.0, top_p 0.95), seed 0, at
+# the geometry of each training config
+AR_CONFIGS = {"clm": "configs/clm.yaml", "jlm": "configs/jlm.yaml"}
+AR_BATCH, AR_TEMPERATURE, AR_TOP_P = 32, 1.0, 0.95
+# one batch each: the int8 request (its step is the slowest) and the
+# --runtime_ckpt one
+AR_INT8_SAMPLES = AR_CKPT_SAMPLES = 32
+
+
+def ar_launches(runtime, cfg, model_type, lw, num_samples, quant):
+    """Launches of one target's AR request: flash, the trunk forward (a
+    launch a layer) and one VQ decoder call a layer for each chunk of 32
+    rows; the AR net's int8 products with ``quant``, a batch: the CLM's
+    encoder 7 a layer, its cross K/V 2 a layer and 9 a decoder layer in
+    each of the lw steps; the JLM's prefill and lw - 1 steps 4 a layer
+    each."""
+    batches = -(-num_samples // AR_BATCH)
+    per_batch = (cfg.n_layers * (7 + 2 + 9 * lw) if model_type == "clm"
+                 else cfg.n_layers * 4 * lw)
+    return {"flash_attention": runtime.trunk.cfg.n_layers
+            + runtime.decoder.cfg.n_layers * -(-num_samples // DECODE_BATCH),
+            "small_attention": 0, "fused_qkv": 0, "fused_ffn": 0,
+            "int8": per_batch * batches if quant else 0}
+
+
+def ar_request(torch, runtime, ops, argv, model_type, out):
+    """One request through ``cli.sample_ar`` (``runtime`` None: the CLI
+    builds it from ``--runtime_ckpt``), its launches counted from 0 and
+    checked against ``ar_launches``, its PDB checked, and no structure
+    special in any sampled token.  Returns (the CLI's report with the
+    launches and peak GiB, the runtime, the AR net the CLI built, the
+    sampled token batches)."""
+    from esmdiff_tpu_torch.cli import sample_ar
+    from esmdiff_tpu_torch.convert import checkpoints
+    from esmdiff_tpu_torch.ops import quant
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for op in (*ops.values(), quant):
+        op.launches = 0
+    with recorded(sample_ar, "prepare_model") as models, \
+            recorded(sample_ar, f"{model_type}_generate") as batches, \
+            recorded(checkpoints, "load_runtime") as loaded:
+        (report,) = sample_ar.main(
+            [*argv, "--output", str(out), "--seed", "0"], runtime=runtime)
+    launches = {k: op.launches for k, op in ops.items()}
+    launches["int8"] = quant.launches
+    runtime = runtime or loaded[0]
+    n, lw = report["n_samples"], report["L"] + 2
+    want = ar_launches(runtime, models[0].cfg, model_type, lw, n,
+                       "--quant" in argv)
+    where = f"ar path, {model_type} {' '.join(argv)}"
+    if launches != want:
+        raise AssertionError(f"{where}: launches {launches}, expected {want}")
+    pdb = out / f"{report['target']}.pdb"
+    check_pdb(pdb.read_text(), n, n * (report["L"] * 4 - 1), str(pdb))
+    specials = sum(int((b >= 4096).sum()) for b in batches)
+    if specials or sum(b.shape[0] for b in batches) != n:
+        raise AssertionError(f"{where}: {specials} structure specials "
+                             "sampled")
+    report.update(launches=launches, peak_memory_gib=(
+        torch.cuda.max_memory_allocated() / 2**30))
+    return report, runtime, models[0], batches
+
+
+def ar_numbers(report):
+    lw, ar_s = report["L"] + 2, report["ar_sec"]
+    return {"L": report["L"], "quant": report["quant"],
+            "conformations_per_s": report["n_samples"] / report["total_sec"],
+            "total_s": report["total_sec"], "trunk_s": report["trunk_sec"],
+            "ar_s": ar_s, "vq_decode_s": report["decode_sec"],
+            "batches": report["batches"],
+            "ms_per_decode_step": 1e3 * ar_s / (report["batches"] * lw),
+            "tokens_per_s": report["n_samples"] * lw / ar_s,
+            "peak_memory_gib": report["peak_memory_gib"],
+            "launches": report["launches"]}
+
+
+def ar_inputs(torch, runtime, model, path, tokens):
+    """The embeddings of ``path``'s sequence for ``tokens``' rows (the
+    trunk's forward, as the CLI runs it) and the teacher-forced inputs of
+    those sampled tokens: the CLM's decoder inputs (start token, then
+    tokens shifted right), the JLM's structure tokens (BOS, then shifted
+    right)."""
+    from esmdiff_tpu_torch.api.protein_api import ESMProtein
+    from esmdiff_tpu_torch.core import constants as C
+
+    seq = ESMProtein.from_pdb(path).sequence
+    toks = torch.as_tensor(runtime.seq_tokenizer.encode(seq), device="cuda")
+    emb = runtime.trunk(sequence_tokens=toks[None]).embeddings[0].float()
+    first = (model.cfg.decoder_start_token_id if hasattr(
+        model.cfg, "decoder_start_token_id") else C.STRUCTURE_BOS_TOKEN)
+    ids = torch.cat([torch.full_like(tokens[:, :1], first), tokens[:, :-1]],
+                    1)
+    return emb[None].expand(tokens.shape[0], -1, -1), ids
+
+
+def ar_full_logits(model, emb, ids):
+    """Teacher-forced logits (B, L, V): the CLM's ``decode_train``, the
+    JLM's training forward's structure logits."""
+    if hasattr(model, "decode_train"):
+        enc = model.encode(emb)
+        return model.decode_train(
+            ids, enc, cond_embeds=enc if model.cfg.dec_add_input_emb
+            else None)
+    return model(emb, ids)["structure_logits"]
+
+
+def ar_decoder(model, emb, ids):
+    """The KV-cached decode of ``ids`` as the generate functions run it:
+    a function ``step(p)`` -> the float32 logits of position p (in order;
+    the JLM's p = 0 is its prefill)."""
+    from esmdiff_tpu_torch.models.clm import causal_table
+
+    B, L = ids.shape
+    if hasattr(model, "decode_train"):
+        enc = model.encode(emb)
+        caches = model.init_cache(B, L)
+        ctx = model.decode_context(enc, L)
+        add = model.cfg.dec_add_input_emb
+        return lambda p: model.decode_step(
+            ids[:, p], p, enc, caches, cond_embed=enc[:, p] if add else None,
+            context=ctx)
+    T_max = emb.shape[1] + model.cfg.offset + L + 1
+    caches = model.init_cache(B, T_max)
+    causal = causal_table(T_max, emb.device)
+    prompt = []
+
+    def step(p):
+        if p == 0:
+            logits, T = model.prefill(emb, ids[:, :1], caches, causal)
+            prompt.append(T)
+            return logits
+        pos = prompt[0] + p - 1
+        pos_id = p if model.cfg.sep_strategy == "position" else pos
+        return model.decode_step(ids[:, p], pos, caches, pos_id, causal)
+
+    return step
+
+
+def ar_gate(torch, model, emb, ids):
+    """Relative L2 of the cached decode's logits against the teacher-forced
+    forward on the same tokens, and the floor: the forward against itself
+    with every Dense product accumulated as a float32 product of the same
+    bf16 operands (another rounding of the same bf16 net)."""
+    import torch.nn.functional as F
+
+    from esmdiff_tpu_torch.nn.layers import Dense
+
+    def float32_product(self, x):
+        bias = None if self.bias is None else self.bias.to(self.dtype).float()
+        return F.linear(x.to(self.dtype).float(),
+                        self.weight.to(self.dtype).float(),
+                        bias).to(self.dtype)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    full = ar_full_logits(model, emb, ids)
+    step = ar_decoder(model, emb, ids)
+    cached = torch.stack([step(p) for p in range(ids.shape[1])], 1)
+    orig = Dense.forward
+    Dense.forward = float32_product
+    try:
+        other = ar_full_logits(model, emb, ids)
+    finally:
+        Dense.forward = orig
+    return rel(cached, full), rel(other, full), full
+
+
+def ar_step_bytes_and_flops(model, emb, ids):
+    """What one decode step of the batch must read at its last position
+    (the weights a step uses once, the K/V caches and the CLM's cross K/V
+    in bf16, the uniforms) and its products' operations."""
+    B, L = ids.shape
+    skip = (("adapter.", "token_embed.", "enc_", "dec_relpos.")
+            if hasattr(model, "decode_train") else
+            ("seq_adapter.", "sequence_head.", "structure_embed.", "wpe.",
+             "token_type.", "sep_token"))
+    weights = [t for name, t in (*model.named_parameters(),
+                                 *model.named_buffers())
+               if not name.startswith(skip)
+               and not (".cross_attn.k." in name or ".cross_attn.v." in name)]
+    matmul = sum(t.numel() for t in weights if t.dim() == 2)
+    if hasattr(model, "decode_train"):
+        cfg = model.cfg
+        kv = cfg.n_layers * 2 * 2 * B * (L + emb.shape[1]) * cfg.d_model
+    else:
+        cfg = model.cfg
+        kv = (cfg.n_layers * 2 * 2 * B * (emb.shape[1] + cfg.offset + L + 1)
+              * cfg.n_embd)
+    nbytes = sum(t.numel() * t.element_size() for t in weights) + kv \
+        + B * 4101 * 4
+    # products: 2 a weight a row; scores and PV: 2 a cached element, and
+    # kv counts 2 bytes an element
+    return nbytes, 2 * B * matmul + kv
+
+
+def ar_step_anatomy(torch, model, emb, ids, u):
+    """One decode step of the batch at its last position, as the generate
+    functions run it (``decode_step``, the shield, top-p, the Gumbel-max
+    over the uniforms ``u``): the host ms of one enqueue
+    (``tools/timing.py``'s ``host_ms``), the wall ms of a step run back to
+    back and synchronised at the end, the device ms summed over its
+    kernels under ``torch.profiler`` (one stream: the busy time; the
+    profiled steps are not the timed ones), the busy share, the device ms
+    of the same step replayed from one CUDA graph (``device_ms``), and
+    the bound from the bytes it must read."""
+    from esmdiff_tpu_torch.api.ar_generation import (sample_token,
+                                                     shield_specials,
+                                                     special_shield)
+
+    last = ids.shape[1] - 1
+    step_at = ar_decoder(model, emb, ids)
+    for p in range(last):
+        step_at(p)
+    shield = special_shield("cuda")
+
+    def step():
+        return sample_token(u, shield_specials(step_at(last), shield),
+                            AR_TEMPERATURE, AR_TOP_P)
+
+    enqueue_ms = host_ms(step, calls=20)
+    steps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    graph_ms = device_ms(graph.replay, iters=20)
+    del graph
+    nbytes, flops = ar_step_bytes_and_flops(model, emb, ids)
+    return {"batch": list(ids.shape), "host_enqueue_ms": enqueue_ms,
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "kernels_per_step": len(kernels) / steps,
+            "cuda_graph_device_ms": graph_ms,
+            "bytes_read": nbytes, **bound(flops, nbytes)}
+
+
+def ar_path(torch, runtime, ops, card, target_dirs):
+    """The AR path's main part (module docstring): each model through the
+    CLI on both targets, int8 on BPTI, the gate, the step's anatomy.
+    Returns (numbers, flash launches of its requests)."""
+    t_phase = time.time()
+    work = ROOT / "output" / "chip_smoke_ar"
+    shutil.rmtree(work, ignore_errors=True)
+    numbers, flash = {"card": card}, 0
+    bpti = next((ROOT / TARGET).glob("*.pdb"))
+    for model_type, cfg in AR_CONFIGS.items():
+        common = ["--config", str(ROOT / cfg)]
+        # untimed: allocator growth and cuBLAS set-up, 2 rows
+        ar_request(torch, runtime, ops,
+                   [*common, "--input", str(ROOT / TARGET), "--n_samples",
+                    "2", "--batch_size", "2"], model_type,
+                   work / "warmup" / model_type)
+        out = numbers[model_type] = {}
+        for key, d in target_dirs.items():
+            report, _, model, batches = ar_request(
+                torch, runtime, ops, [*common, "--input", str(d)],
+                model_type, work / model_type / key)
+            flash += report["launches"]["flash_attention"]
+            out[key] = ar_numbers(report)
+            if key == "bpti":
+                emb, ids = ar_inputs(torch, runtime, model, bpti, batches[0])
+                rel, floor, full = ar_gate(torch, model, emb, ids)
+                out["gate"] = {"batch": list(ids.shape),
+                               "rel_l2_cached_vs_forward": rel,
+                               "rel_l2_two_roundings": floor}
+                if not rel <= 2 * floor:
+                    raise AssertionError(
+                        f"ar path, {model_type}: cached decode vs forward "
+                        f"relative L2 {rel}, more than twice the two "
+                        f"roundings' {floor}")
+                u = torch.rand(ids.shape[0], 4101, device="cuda")
+                out["step"] = ar_step_anatomy(torch, model, emb, ids, u)
+                print(f"[ar step] {model_type} " + json.dumps(out["step"]),
+                      flush=True)
+            del model, batches
+        report, _, qmodel, _ = ar_request(
+            torch, runtime, ops, [*common, "--input", str(ROOT / TARGET),
+                                  "--quant", "int8", "--n_samples",
+                                  str(AR_INT8_SAMPLES)],
+            model_type, work / model_type / "int8")
+        flash += report["launches"]["flash_attention"]
+        out["int8_bpti"] = ar_numbers(report)
+        q_full = ar_full_logits(qmodel, emb, ids)
+        out["int8_bpti"]["logits_rel_l2_int8_vs_bf16"] = (
+            (q_full - full).norm() / full.norm()).item()
+        out["int8_bpti"]["step"] = ar_step_anatomy(torch, qmodel, emb, ids,
+                                                   u)
+        del qmodel, q_full, full, emb, ids
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[ar path] {model_type} " + json.dumps(out), flush=True)
+    shutil.rmtree(work)
+    numbers["phase_s"] = time.time() - t_phase
+    return numbers, flash
+
+
+def ar_ckpt_request(torch, ops, card, mdlm_ckpt, export):
+    """The AR path's last request: CLM (configs/clm.yaml) with
+    ``--runtime_ckpt`` (the train path's run) and ``--vqvae_ckpt`` (the
+    vqvae path's export) on BPTI: exact launches, a finite PDB, the
+    runtime's decoder holding the export bit for bit."""
+    from esmdiff_tpu_torch.utils.checkpoint import load_params
+
+    work = ROOT / "output" / "chip_smoke_ar_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    report, runtime, _, _ = ar_request(
+        torch, None, ops,
+        ["--config", str(ROOT / AR_CONFIGS["clm"]), "--runtime_ckpt",
+         str(mdlm_ckpt), "--vqvae_ckpt", str(export), "--input",
+         str(ROOT / TARGET), "--n_samples", str(AR_CKPT_SAMPLES)],
+        "clm", work)
+    saved = load_params(export)
+    own = {f"decoder.{k}": v for k, v in runtime.decoder.state_dict().items()}
+    differ = [k for k in own if not torch.equal(own[k].cpu(), saved[k])]
+    if differ:
+        raise AssertionError(f"ar path --vqvae_ckpt decoder vs saved: "
+                             f"{differ[:8]}")
+    shutil.rmtree(work)
+    return {"card": card, **ar_numbers(report),
+            "decoder_tensors_equal_bit_for_bit": len(own)}, \
+        report["launches"]["flash_attention"]
 
 
 def main() -> int:
@@ -2327,26 +2693,41 @@ def main() -> int:
     t_numbers, t_launches, mdlm_ckpt = train_path(torch, runtime, ops, card)
     print("[train path] " + json.dumps(t_numbers), flush=True)
 
-    # 9. the vqvae path: the tokenizer trained at full geometry through
+    # 9. the AR path: configs/clm.yaml and configs/jlm.yaml through
+    # cli.sample_ar on the default runtime (its trunk and decoder), both
+    # targets, int8 on BPTI; its --runtime_ckpt request follows phase 10
+    a_numbers, a_flash = ar_path(torch, runtime, ops, card, target_dirs)
+
+    # 10. the vqvae path: the tokenizer trained at full geometry through
     # esmdiff-torch-train-vqvae, kernel vs plain in a VQ step, the export,
     # --vqvae_ckpt with the train path's trunk; the earlier runtimes are
     # freed first (the encoder's activations need the room)
     del runtime, fused_rt, fused_trunk, stock_rt, layer0
     gc.collect()
     torch.cuda.empty_cache()
-    v_numbers, v_launches = vqvae_path(torch, ops, card, gen, mdlm_ckpt)
+    v_numbers, v_launches, export = vqvae_path(torch, ops, card, gen,
+                                               mdlm_ckpt)
     print("[vqvae path] " + json.dumps(v_numbers), flush=True)
+    a_numbers["runtime_ckpt_vqvae_ckpt"], ckpt_flash = ar_ckpt_request(
+        torch, ops, card, mdlm_ckpt, export)
+    shutil.rmtree(export.parent)
+    shutil.rmtree(mdlm_ckpt.parent.parent)
+    a_launches = {**dict.fromkeys(KERNELS, 0),
+                  "flash_attention": a_flash + ckpt_flash}
+    print("[ar path] " + json.dumps(a_numbers), flush=True)
 
-    # 10. the kernels line (headline shape: the trunk's), the device line;
+    # 11. the kernels line (headline shape: the trunk's), the device line;
     # launches from the paths that run the kernel, fused_ffn's from its
     # phase (no model path runs it)
     by_path = {"default path": launches, "fused path": f_launches,
                "gibbs path": g_launches, "serve path": s_launches,
                "inpaint path": i_launches,
                "train path": {**dict.fromkeys(KERNELS, 0), **t_launches},
-               "vqvae path": {**dict.fromkeys(KERNELS, 0), **v_launches}}
+               "vqvae path": {**dict.fromkeys(KERNELS, 0), **v_launches},
+               "ar path": a_launches}
     launches_from = {"flash_attention": ("default path", "inpaint path",
-                                         "train path", "vqvae path"),
+                                         "train path", "vqvae path",
+                                         "ar path"),
                      "small_attention": ("fused path",),
                      "fused_qkv": ("fused path",)}
     entries = []

@@ -21,7 +21,9 @@ Mapping (the port's modules use the flax names, so only leaves change):
   - the ``nn.scan``-stacked layers ``<stack>/blocks/block/...`` (leading
     axis = layer) are unstacked into ``<stack>.blocks.<n_geom + i>``, where
     n_geom counts the unscanned ``block<j>`` layers beside them, which map
-    to ``<stack>.blocks.<j>``.
+    to ``<stack>.blocks.<j>``;
+  - the CLM's ``enc<j>``/``dec<j>`` layers map to ``enc_blocks.<j>``/
+    ``dec_blocks.<j>`` (the port's ``ModuleList``s).
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ import torch
 from torch import nn
 
 _BLOCK = re.compile(r"block(\d+)$")
+# unscanned layer lists: flax's "<prefix><j>" -> the port's "<list>.<j>"
+_LAYERS = re.compile(r"(block|enc|dec)(\d+)$")
+_LAYER_LISTS = {"block": "blocks", "enc": "enc_blocks", "dec": "dec_blocks"}
 
 
 def _leaf_name(name: str) -> str:
@@ -57,7 +62,7 @@ def flax_names(tree: Mapping, prefix: str = "") -> dict:
     out: dict = {}
     n_geom = sum(1 for k in tree if _BLOCK.match(k))
     for key, val in tree.items():
-        m = _BLOCK.match(key)
+        m = _LAYERS.match(key)
         if key == "blocks" and isinstance(val, Mapping) and "block" in val:
             # nn.scan-stacked layers: one torch name per layer
             stacked = flax_names(val["block"])
@@ -67,7 +72,7 @@ def flax_names(tree: Mapping, prefix: str = "") -> dict:
                     out[f"{prefix}blocks.{n_geom + i}.{name}"] = FlaxLeaf(
                         (key, "block", *leaf.path), i, leaf.transposed)
         elif isinstance(val, Mapping):
-            sub = f"blocks.{m.group(1)}" if m else key
+            sub = f"{_LAYER_LISTS[m.group(1)]}.{m.group(2)}" if m else key
             for name, leaf in flax_names(val, f"{prefix}{sub}.").items():
                 out[name] = FlaxLeaf((key, *leaf.path), leaf.layer,
                                      leaf.transposed)

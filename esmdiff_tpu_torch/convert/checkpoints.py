@@ -15,7 +15,13 @@ way, or else random weights (seed 0), as in JAX.
 (``encoder_cfg``, ``decoder_cfg``) beside ``params.pt`` (the port's
 ``utils/checkpoint.py``) in place of orbax's ``params/``.
 
-Not ported yet, and raising: the JAX package's orbax run and VQ-VAE
+``load_ar_params`` fills a CLM or JLM from an HF torch checkpoint
+(``convert/ar_rules.py``), strictly: unlike the JAX package's, which
+converts with the CLM rules for 12 layers unless told otherwise and keeps
+the random value of every leaf it cannot fill, it takes the rules and the
+depth from the model it fills and raises on any leaf left unfilled.
+
+Not ported yet, and raising: the JAX package's orbax run, VQ-VAE and AR
 directories, and a PyTorch ESM3 trunk file (``torch_to_jax``).
 """
 
@@ -30,7 +36,12 @@ import torch
 
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime
 from esmdiff_tpu_torch.convert import load_flax_params
+from esmdiff_tpu_torch.convert.ar_rules import (clm_rules, jlm_rules,
+                                                load_torch_state_dict,
+                                                strip_prefix)
 from esmdiff_tpu_torch.device import resolve_device
+from esmdiff_tpu_torch.models.clm import CLM
+from esmdiff_tpu_torch.models.jlm import JLM
 from esmdiff_tpu_torch.models.vqvae import (DecoderConfig, EncoderConfig,
                                             StructureTokenDecoder,
                                             StructureTokenEncoder)
@@ -163,3 +174,49 @@ def load_runtime(ckpt_path: str | Path, vqvae_ckpt: Optional[str] = None,
     print(f"[load_runtime] restored the trunk and sigma embedder from "
           f"{step_dir}")
     return runtime
+
+
+@torch.no_grad()
+def load_ar_params(ckpt_path: str | Path, model: CLM | JLM) -> CLM | JLM:
+    """Fill ``model`` (a floating-point CLM or JLM) from an HF torch
+    checkpoint (``.pt``/``.ckpt``: a bare state dict, DeepSpeed's
+    ``module`` or Lightning's ``state_dict``, ``net.``-prefixed keys
+    unwrapped), keeping each parameter's dtype and device.  The rules
+    (CLM or JLM) and the depth are the model's.  Raises KeyError when a
+    parameter of the model has no rule ("unmapped") or its HF key is not
+    in the checkpoint ("missing"), ValueError on a shape mismatch."""
+    path = Path(ckpt_path)
+    if path.is_dir():
+        _not_ported(f"loading {path}: an orbax AR checkpoint of the JAX "
+                    "package")
+    if isinstance(model, CLM):
+        model_type, rules = "clm", clm_rules(model.cfg.n_layers)
+    elif isinstance(model, JLM):
+        model_type, rules = "jlm", jlm_rules(model.cfg.n_layers)
+    else:
+        raise TypeError(f"load_ar_params fills a CLM or a JLM, not "
+                        f"{type(model).__name__}")
+    sd = load_torch_state_dict(str(path))
+    if any(k.startswith("net.") for k in sd):
+        sd = strip_prefix(sd, "net.")
+    own = model.state_dict()
+    unmapped = sorted(k for k in own if k not in rules)
+    missing = sorted(rules[k][0] for k in own
+                     if k in rules and rules[k][0] not in sd)
+    if unmapped or missing:
+        raise KeyError(
+            f"{path} does not fill the port's {model_type} "
+            f"({model.cfg.n_layers} layers): {len(missing)} missing "
+            f"{missing[:8]}, {len(unmapped)} unmapped {unmapped[:8]}")
+    converted = {}
+    for name, t in own.items():
+        key, transform = rules[name]
+        value = transform(sd[key])
+        if tuple(value.shape) != tuple(t.shape):
+            raise ValueError(f"{name} <- {key}: checkpoint shape "
+                             f"{tuple(value.shape)} vs port {tuple(t.shape)}")
+        converted[name] = value.to(dtype=t.dtype, device=t.device)
+    model.load_state_dict(converted, strict=True)
+    print(f"[load_ar_params] converted {model_type} from {path} "
+          f"({len(converted)} tensors)")
+    return model

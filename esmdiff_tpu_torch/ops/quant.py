@@ -9,7 +9,9 @@
     (``kernel_q`` int8 (F, D), ``scale`` float32 (F,), optional ``bias``);
   - ``quantize_trunk_params``: a trunk's (or the VQ decoder's) state dict
     -> the layout of its ``quant="int8"`` twin, with the pre-projection
-    LayerNorm gammas folded into the qkv/up weights (``_FOLD_LN``).
+    LayerNorm gammas folded into the qkv/up weights (``_FOLD_LN``);
+  - ``quantize_named_denses``: the same for the AR nets (CLM, JLM), by
+    module name, biases kept in float32.
 
 The product: the JAX package contracts with ``lax.dot_general`` outside any
 Pallas kernel, so the port calls a library product too, ``torch._int_mm``
@@ -160,4 +162,29 @@ def quantize_trunk_params(state_dict: dict) -> dict:
         del out[key]
         out[f"{block}.{name}.kernel_q"] = q
         out[f"{block}.{name}.scale"] = s
+    return out
+
+
+@torch.no_grad()
+def quantize_named_denses(state_dict: dict, names) -> dict:
+    """The AR nets' converter (CLM, JLM): every Dense whose module name is
+    in ``names`` and whose entries are ``weight`` and at most a ``bias``
+    becomes the ``QuantDense`` layout ``kernel_q`` + ``scale``, its bias
+    kept in float32; every other entry is kept as it is.  Quantizes the
+    values the state dict holds (float32 weights quantize as JAX's do)."""
+    leaves: dict = {}
+    for key in state_dict:
+        module, _, leaf = key.rpartition(".")
+        leaves.setdefault(module, set()).add(leaf)
+    out = dict(state_dict)
+    for module, own in leaves.items():
+        if (module.rpartition(".")[2] not in names or "weight" not in own
+                or not own <= {"weight", "bias"}):
+            continue
+        q, s = quantize_weight(state_dict[f"{module}.weight"].float())
+        del out[f"{module}.weight"]
+        out[f"{module}.kernel_q"] = q
+        out[f"{module}.scale"] = s
+        if "bias" in own:
+            out[f"{module}.bias"] = state_dict[f"{module}.bias"].float()
     return out

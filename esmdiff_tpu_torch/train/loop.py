@@ -8,9 +8,11 @@ metrics to CSV, resume, and the debug modes (``fast_dev_run``,
 The run's composed ``config.yaml`` is written beside it, from which
 ``convert/checkpoints.py`` rebuilds the model.
 
-One device (the card unless the caller asks for the CPU).  Not ported yet,
-and raising: the CLM/JLM tasks, multi-device strategies and multihost,
-``model.pretrained_ckpt`` and ``model.param_dtype`` other than float32.
+One device (the card unless the caller asks for the CPU).  ``build_clm``
+and ``build_jlm`` build the AR nets of a config (the sampling CLI's
+``--config``).  Not ported yet, and raising: training the CLM/JLM tasks,
+multi-device strategies and multihost, ``model.pretrained_ckpt`` and
+``model.param_dtype`` other than float32.
 """
 
 from __future__ import annotations
@@ -25,10 +27,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from esmdiff_tpu_torch.core import constants as C
 from esmdiff_tpu_torch.device import resolve_device
 from esmdiff_tpu_torch.diffusion.mdlm import MDLM, GeneratorDraws, MDLMConfig
 from esmdiff_tpu_torch.diffusion.noise import get_noise
+from esmdiff_tpu_torch.models.clm import CLM, CLMConfig
 from esmdiff_tpu_torch.models.esm3 import ESM3, ESM3Config, esm3_tiny
+from esmdiff_tpu_torch.models.jlm import JLM, JLMConfig
 from esmdiff_tpu_torch.nn.layers import TimestepEmbedder, init_params as \
     init_module_params
 from esmdiff_tpu_torch.utils.checkpoint import CheckpointManager
@@ -88,6 +93,34 @@ def build_mdlm(cfg: TrainConfig, device=None) -> MDLM:
         T=m.T,
     )
     return MDLM(net, se, noise=get_noise(m.noise), cfg=mdlm_cfg)
+
+
+def build_clm(cfg: TrainConfig, device=None,
+              cond_dim: int = C.ESM3_D_MODEL) -> CLM:
+    """The CLM net of ``model.clm`` (the reference's clm experiment), with
+    uninitialised float32 parameters on ``device``; ``cond_dim`` is the
+    width of the embeddings it is fed (flax infers it from them)."""
+    m = cfg.model.clm
+    with torch.device(resolve_device(device)):
+        return CLM(CLMConfig(
+            d_model=m.d_model, d_ff=m.d_ff, n_layers=m.n_layers,
+            n_heads=m.n_heads, decoder_only=m.decoder_only,
+            dec_add_input_emb=m.dec_add_input_emb, dtype=m.dtype,
+            cond_dim=cond_dim))
+
+
+def build_jlm(cfg: TrainConfig, device=None,
+              cond_dim: int = C.ESM3_D_MODEL) -> JLM:
+    """The JLM net of ``model.jlm`` (the reference's jlm experiment), as
+    ``build_clm`` builds the CLM."""
+    m = cfg.model.jlm
+    with torch.device(resolve_device(device)):
+        return JLM(JLMConfig(
+            n_embd=m.n_embd, n_layers=m.n_layers, n_heads=m.n_heads,
+            n_positions=m.n_positions, sep_strategy=m.sep_strategy,
+            seq_loss_weight=m.seq_loss_weight,
+            struct_embed_dim=m.struct_embed_dim, dtype=m.dtype,
+            cond_dim=cond_dim))
 
 
 def mdlm_modules(mdlm: MDLM) -> nn.ModuleDict:

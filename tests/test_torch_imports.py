@@ -112,6 +112,29 @@ def test_tokenizer_modules_import_without_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_ar_modules_import_without_jax():
+    """The AR slice's modules by name, with jax, flax, optax and orbax
+    blocked: the CLM, the JLM, their generation, the HF rules, the
+    checkpoint loader and the AR sampling CLI."""
+    probe = ("import sys\n"
+             "for m in ('jax', 'flax', 'optax', 'orbax', "
+             "'orbax.checkpoint'):\n    sys.modules[m] = None\n"
+             "import esmdiff_tpu_torch.models.clm"
+             ", esmdiff_tpu_torch.models.jlm"
+             ", esmdiff_tpu_torch.api.ar_generation"
+             ", esmdiff_tpu_torch.convert.ar_rules"
+             ", esmdiff_tpu_torch.cli.sample_ar\n"
+             "from esmdiff_tpu_torch.convert.checkpoints import "
+             "load_ar_params\n"
+             "from esmdiff_tpu_torch.ops.quant import quantize_named_denses\n"
+             "from esmdiff_tpu_torch.train.loop import build_clm, build_jlm\n"
+             "assert not [m for m in sys.modules if m == 'esmdiff_tpu' or "
+             "m.startswith('esmdiff_tpu.')]\n")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
 def test_no_jax_import_lines():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|esmdiff_tpu)\b")
     files = sorted((ROOT / "esmdiff_tpu_torch").rglob("*.py"))
