@@ -136,7 +136,26 @@ Phases, each of which fails loudly (no error is caught):
      runtime's encoder and decoder equal the saved tensors bit for bit, a
      finite 8-MODEL PDB, exact launches; the flash kernel's device time
      at the decoder's VQ shapes (unmasked), beside its bound and SDPA;
- 11. print the card, each path's numbers, the kernels line, and as the
+ 11. the eval path, on the default path's ensembles (100 samples each of
+     BPTI and 1jm4.B) and the earlier runtimes freed: the port's
+     esmdiff-torch-analyze in this process on the card, bpti against a
+     stand-in reference trajectory (a seeded random walk of 100,000
+     frames around data/targets/bpti/bpti.pdb, written as .npy in nm:
+     58 CA, 1,653 pairwise distances, TICA at lag 500) with --clusters
+     holding bpti.pdb, apo on 1jm4.B against a gapped, renumbered, moved
+     copy of it (4,950 masked Kabsch fits), ped against the 114 PDBs of
+     data/targets/ped; every output value finite (None only where the JAX
+     package leaves it so), no kernel launched; the same suites with
+     --device cpu, bpti on the trajectory cut to its first 10,000 frames
+     (and that cut on the card too), held against the card's outputs (JS
+     within 1e-4, TM and validity exactly, the rest within 1e-9
+     relative); TICA's seconds on the card at 100,000 frames and at
+     10,000 on the card and the CPU; the native TM library against
+     _tm_score_np (its step-for-step numpy version) on the 100 BPTI
+     samples against bpti.pdb (1e-6), and, printed, how far the library's
+     RMSD lies above the optimal fit's (geo.rmsd: an SVD); each suite's
+     seconds, the peak GiB, the g++ builds' seconds;
+ 12. print the card, each path's numbers, the kernels line, and as the
      last line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA card or without the
 rest of the repo beside it.
@@ -2495,6 +2514,276 @@ def ar_ckpt_request(torch, ops, card, mdlm_ckpt, export):
         report["launches"]["flash_attention"]
 
 
+# the eval path: esmdiff-torch-analyze on the default path's ensembles.
+# BPTI's stand-in reference trajectory has EVAL_FRAMES frames; the
+# card-against-CPU gate cuts it to its first EVAL_CPU_FRAMES (for the
+# CPU's time); TICA at the CLI's lag
+EVAL_FRAMES, EVAL_CPU_FRAMES, EVAL_LAGTIME = 100_000, 10_000, 500
+# JSON keys held exactly card against CPU: TM (host C++ on the same
+# arrays) and validity (counts of the same distances)
+EVAL_EXACT = ("TM-", "RMSD-ens", "per_cluster", "tm", "val_", "gaps")
+
+
+def stand_in_trajectory(n_frames, seed=0):
+    """A seeded random walk of BPTI's CA around the structure, (frames,
+    58, 3) float32 in nm: two slow collective modes (random displacement
+    fields of 2.0 and 1.5 A rms, AR(1) coefficients 0.9998 and 0.999:
+    correlation times of ~5000 and ~1000 frames, past the lag of 500) and
+    independent noise on every atom and frame (0.5 A rms), so that TICA's
+    top two components stand well apart from the rest."""
+    import numpy as np
+    from scipy.signal import lfilter
+
+    from esmdiff_tpu_torch.core.protein import load_ca_ensemble
+
+    ca = load_ca_ensemble(ROOT / TARGET / "bpti.pdb")[0].astype(np.float64)
+    rng = np.random.default_rng(seed)
+
+    def ar1(a, shape):   # unit stationary variance
+        return lfilter([math.sqrt(1 - a * a)], [1.0, -a],
+                       rng.standard_normal(shape), axis=0)
+
+    x = np.repeat(ca[None], n_frames, axis=0)
+    for amp, a in ((2.0, 0.9998), (1.5, 0.999)):
+        field = rng.standard_normal(ca.shape)
+        x += ar1(a, (n_frames, 1, 1)) * (
+            field * amp / np.sqrt((field ** 2).sum(-1).mean()))
+    x += rng.standard_normal(x.shape) * (0.5 / math.sqrt(3))
+    return (x / 10.0).astype(np.float32)
+
+
+def apo_layout(work, samples_pdb):
+    """The apo suite's inputs, as tests/test_analysis.py's real-target CLI
+    test builds them: 1jm4.B and a holo partner (the same chain minus 4
+    residues at its middle, renumbered from 200; here also its atoms moved
+    by 0.5 A, seeded, so that the pair's per-residue RMSD is a signal and
+    not rounding noise) in the splits layout <dir>/<name[:2]>/<name>, the
+    default path's ensemble as the samples, and the splits CSV."""
+    import csv
+    import dataclasses
+
+    import numpy as np
+
+    from esmdiff_tpu_torch.core import protein
+
+    prot = protein.from_pdb_file(ROOT / L128_TARGET)
+    L = len(prot.aatype)
+    keep = np.ones(L, bool)
+    keep[L // 2:L // 2 + 4] = False
+    moved = prot.atom_positions + np.random.RandomState(0).randn(
+        *prot.atom_positions.shape).astype(np.float32) * 0.5
+    holo = dataclasses.replace(
+        prot, atom_positions=moved[keep], atom_mask=prot.atom_mask[keep],
+        aatype=prot.aatype[keep], b_factors=prot.b_factors[keep],
+        residue_index=np.arange(200, 200 + keep.sum(), dtype=np.int32))
+    name1, name2 = L128_TARGET.name, f"{L128_TARGET.stem}_holo.pdb"
+    structures, samples = work / "structures", work / "samples"
+    for name, p in ((name1, prot), (name2, holo)):
+        (structures / name[:2]).mkdir(parents=True, exist_ok=True)
+        protein.to_pdb_file(p, structures / name[:2] / name)
+    samples.mkdir(parents=True)
+    shutil.copy(samples_pdb, samples / samples_pdb.name)
+    with open(work / "apo.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["name", "holo", "seqres"])
+        w.writeheader()
+        w.writerow({"name": name1, "holo": name2, "seqres": prot.sequence})
+    return ["--samples", str(samples), "--pairs-csv", str(work / "apo.csv"),
+            "--structures", str(structures)]
+
+
+def analyze_run(torch, argv, out, device):
+    """One ``esmdiff-torch-analyze`` run in this process (its printed JSON
+    kept in ``out/stdout.txt``): (each output file's values, seconds)."""
+    import csv
+
+    from esmdiff_tpu_torch.cli import analyze
+
+    out.mkdir(parents=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with open(out / "stdout.txt", "w") as f, contextlib.redirect_stdout(f):
+        analyze.main([*argv, "--output", str(out), "--device", device])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    files = {}
+    for path in sorted(out.glob("*.json")):
+        files[path.name] = json.loads(path.read_text())
+    for path in sorted(out.glob("*.csv")):
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f))
+        files[path.name] = [dict(zip(rows[0], r)) for r in rows[1:]]
+    return files, seconds
+
+
+def eval_finite(tree, where, none_ok=()):
+    """Every number of an output tree finite; None only under ``none_ok``
+    (the keys the JAX package leaves None by rule)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if v is None and k in none_ok:
+                continue
+            eval_finite(v, f"{where}.{k}", none_ok)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            eval_finite(v, f"{where}[{i}]", none_ok)
+    elif tree is None or (isinstance(tree, float) and not math.isfinite(tree)):
+        raise AssertionError(f"eval path: {where} is {tree}")
+
+
+def eval_gap(card, cpu, where, worst, key=""):
+    """Holds a card run's outputs against the CPU run's: JS values within
+    1e-4 (their 4-decimal rounding), TM and validity exactly, every other
+    number within 1e-9 relative; strings equal.  Records the largest
+    difference of each kind in ``worst``."""
+    if isinstance(card, dict):
+        if list(card) != list(cpu):
+            raise AssertionError(f"eval path {where}: keys {list(card)} "
+                                 f"against {list(cpu)}")
+        for k in card:
+            eval_gap(card[k], cpu[k], f"{where}.{k}", worst, k)
+        return
+    if isinstance(card, list):
+        if len(card) != len(cpu):
+            raise AssertionError(f"eval path {where}: lengths differ")
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            eval_gap(a, b, f"{where}[{i}]", worst, key)
+        return
+    try:
+        a, b = float(card), float(cpu)
+    except (TypeError, ValueError):
+        if card != cpu:
+            raise AssertionError(f"eval path {where}: {card} against {cpu}")
+        return
+    if key.startswith("js_"):
+        kind, d, limit = "js_abs", abs(a - b), 1e-4 + 1e-12
+    elif key.startswith(EVAL_EXACT):
+        kind, d, limit = "exact_abs", abs(a - b), 0.0
+    else:
+        kind, d, limit = "rel", abs(a - b) / max(abs(b), 1e-12), 1e-9
+    worst[kind] = max(worst.get(kind, 0.0), d)
+    if not d <= limit:
+        raise AssertionError(f"eval path {where}: card {a} against CPU {b} "
+                             f"({kind} {d} > {limit})")
+
+
+def tica_seconds(torch, frames, device):
+    """Seconds of TICA's fit and projection (lag 500) on ``frames``' pairwise
+    distances, formed beforehand on ``device``."""
+    from esmdiff_tpu_torch.eval import metrics
+
+    X = metrics.pairwise_distance_ca(frames, device=device)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    metrics.TICA(dim=2, lagtime=EVAL_LAGTIME).fit(X).transform(X)
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
+def eval_path(torch, ops, card, ensembles):
+    """The eval path (module docstring): esmdiff-torch-analyze bpti, apo and
+    ped on the default path's ensembles, on the card, the card against the
+    CPU, the native TM against its plain version.  ensembles: {key: the
+    default path's 100-MODEL PDB}."""
+    import numpy as np
+
+    from esmdiff_tpu_torch.core.protein import load_ca_ensemble
+    from esmdiff_tpu_torch.eval import geo, tmscore
+    from esmdiff_tpu_torch.utils import native
+
+    t_phase = time.time()
+    work = ROOT / "output" / "chip_smoke_eval"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "clusters").mkdir(parents=True)
+    shutil.copy(ROOT / TARGET / "bpti.pdb", work / "clusters" / "bpti.pdb")
+    t0 = time.time()
+    traj = stand_in_trajectory(EVAL_FRAMES)
+    np.save(work / "traj.npy", traj)
+    np.save(work / "traj_cut.npy", traj[:EVAL_CPU_FRAMES])
+    make_s = time.time() - t0
+    bpti_pdb, l128_pdb = ensembles["bpti"], ensembles[L128_TARGET.stem]
+    bpti = ["bpti", "--preds", str(bpti_pdb), "--clusters",
+            str(work / "clusters"), "--lagtime", str(EVAL_LAGTIME)]
+    argv = {"bpti": [*bpti, "--target", str(work / "traj.npy")],
+            "apo": ["apo", *apo_layout(work / "apo_inputs", l128_pdb)],
+            "ped": ["ped", "--preds", str(bpti_pdb), str(l128_pdb),
+                    "--targets", str(ROOT / "data" / "targets" / "ped")]}
+    cut = [*bpti, "--target", str(work / "traj_cut.npy")]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for op in ops.values():
+        op.launches = 0
+    outputs, seconds = {}, {}
+    for suite, args in argv.items():
+        outputs[suite], seconds[suite] = analyze_run(
+            torch, args, work / suite, "cuda")
+    launches = {k: op.launches for k, op in ops.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(launches.values()):
+        raise AssertionError(f"eval path: kernel launches {launches} (the "
+                             "evaluation runs no model)")
+    for suite, files in outputs.items():
+        eval_finite(files, suite, none_ok=("tm_correlation",))
+    apo = outputs["apo"]["apo_metrics.json"]["per_target"][0]
+    if apo["gaps"] != [0, 4] or not apo["tm_pair"] > 0.9:
+        raise AssertionError(f"eval path: the apo pair's registration: "
+                             f"{apo}")
+
+    # the card against the CPU: the same suites, the trajectory cut
+    worst, gate_s = {}, {}
+    for suite, args in {"bpti_cut": cut, "apo": argv["apo"],
+                        "ped": argv["ped"]}.items():
+        if suite == "bpti_cut":
+            card_files, gate_s["bpti_cut_card"] = analyze_run(
+                torch, args, work / "bpti_cut_card", "cuda")
+        else:
+            card_files = outputs[suite]
+        cpu_files, gate_s[f"{suite}_cpu"] = analyze_run(
+            torch, args, work / f"{suite}_cpu", "cpu")
+        eval_gap(card_files, cpu_files, suite, worst)
+
+    # TICA alone: the trajectory on the card, its cut on the card and CPU
+    frames = load_ca_ensemble(work / "traj.npy")
+    tica = {"card_s": tica_seconds(torch, frames, "cuda"),
+            "card_cut_s": tica_seconds(torch, frames[:EVAL_CPU_FRAMES],
+                                       "cuda"),
+            "cpu_cut_s": tica_seconds(torch, frames[:EVAL_CPU_FRAMES],
+                                      "cpu")}
+    tica["cpu_over_card_cut"] = tica["cpu_cut_s"] / tica["card_cut_s"]
+
+    # the native TM against its plain version on the BPTI pairs; printed,
+    # how far the library's global RMSD lies above the optimal (SVD) fit's
+    ens = load_ca_ensemble(bpti_pdb).astype(np.float64)
+    ref = load_ca_ensemble(ROOT / TARGET / "bpti.pdb")[0].astype(np.float64)
+    tms, rmsds = tmscore.tm_score_many(ens, ref)
+    t0 = time.time()
+    plain = np.array([tmscore._tm_score_np(e, ref) for e in ens])
+    plain_s = time.time() - t0
+    tm_gap = float(max(np.abs(tms - plain[:, 0]).max(),
+                       np.abs(rmsds - plain[:, 1]).max()))
+    if not tm_gap <= 1e-6:
+        raise AssertionError(f"eval path: native TM against _tm_score_np: "
+                             f"{tm_gap}")
+    optimum = geo.rmsd_batched(torch.from_numpy(ens).cuda(),
+                               torch.from_numpy(ref).cuda()).cpu().numpy()
+    shutil.rmtree(work)
+    scores = {"bpti": outputs["bpti"]["js_metrics.csv"],
+              "bpti_clusters": outputs["bpti"]["bpti_tm_rmsd_div.json"],
+              "apo": outputs["apo"]["apo_metrics.json"],
+              "ped": outputs["ped"]["ped_metrics.json"]}
+    return {"card": card, "frames": EVAL_FRAMES,
+            "cut_frames": EVAL_CPU_FRAMES, "stand_in_s": make_s,
+            "suite_s": seconds, "gate_s": gate_s, "tica": tica,
+            "peak_memory_gib": peak,
+            "native_build_s": dict(native.build_seconds),
+            "card_vs_cpu_worst": worst, "native_vs_plain_tm_max": tm_gap,
+            "tm_pairs_checked": len(ens), "plain_tm_s": plain_s,
+            "native_rmsd_above_optimum_max": float((rmsds - optimum).max()),
+            "native_rmsd_above_1e-6": int((rmsds - optimum > 1e-6).sum()),
+            "launches": launches,
+            "scores": scores, "phase_s": time.time() - t_phase}, launches
+
+
 def main() -> int:
     import torch
 
@@ -2716,7 +3005,14 @@ def main() -> int:
                   "flash_attention": a_flash + ckpt_flash}
     print("[ar path] " + json.dumps(a_numbers), flush=True)
 
-    # 11. the kernels line (headline shape: the trunk's), the device line;
+    # 11. the eval path: esmdiff-torch-analyze bpti, apo and ped on the
+    # default path's ensembles, on the card and against the CPU
+    e_numbers, e_launches = eval_path(
+        torch, ops, card, {key: ROOT / "output" / "chip_smoke" / key
+                           / f"{key}.pdb" for key in target_dirs})
+    print("[eval path] " + json.dumps(e_numbers), flush=True)
+
+    # 12. the kernels line (headline shape: the trunk's), the device line;
     # launches from the paths that run the kernel, fused_ffn's from its
     # phase (no model path runs it)
     by_path = {"default path": launches, "fused path": f_launches,
@@ -2724,7 +3020,7 @@ def main() -> int:
                "inpaint path": i_launches,
                "train path": {**dict.fromkeys(KERNELS, 0), **t_launches},
                "vqvae path": {**dict.fromkeys(KERNELS, 0), **v_launches},
-               "ar path": a_launches}
+               "ar path": a_launches, "eval path": e_launches}
     launches_from = {"flash_attention": ("default path", "inpaint path",
                                          "train path", "vqvae path",
                                          "ar path"),

@@ -78,6 +78,9 @@ class ESMProtein:
                 seq = "".join(chars)
         return cls(sequence=seq, coordinates=coords)
 
+    def to_pdb(self, path: str | Path):
+        protein_io.to_pdb_file(self.to_protein(), path)
+
     def to_protein(self) -> protein_io.Protein:
         L = len(self.sequence)
         if self.coordinates is None:

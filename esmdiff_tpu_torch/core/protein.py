@@ -1,20 +1,26 @@
-"""Protein structure container + PDB I/O (the subset the ddpm slice uses).
+"""Protein structure container + PDB I/O.
 
 The port's copy of ``esmdiff_tpu/core/protein.py``: the ``Protein``
 container (with its N/CA/C and CA views), backbone -> atom37 with inferred
-carbonyl oxygens, the pure-Python
-PDB parser, and the multi-MODEL ensemble writer.  Pure numpy.
+carbonyl oxygens, the PDB parser (the C++ parser of ``native/pdbio``, built
+by ``utils/native.py``, and the pure-Python parser it defers to), the
+single- and multi-MODEL writers, the merge/split helpers and the CA loader
+of the evaluation suites.  Pure numpy.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 import os
+import threading
 from pathlib import Path
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
+
+from esmdiff_tpu_torch.utils import native
 
 from . import residue_constants as rc
 
@@ -123,8 +129,93 @@ def infer_oxygen(prot: Protein) -> Protein:
 
 
 # ---------------------------------------------------------------------------
-# PDB parsing (pure Python; the native parser waits for a later slice)
+# PDB parsing: the C++ parser (native/pdbio, through ctypes), which defers
+# to the pure-Python parser on input it cannot parse as Python would
 # ---------------------------------------------------------------------------
+
+_pdbio = None
+_pdbio_lock = threading.Lock()
+
+
+def _load_pdbio():
+    """Build (once) and load the native parser, its vocabularies injected
+    from residue_constants so Python stays their one source; None when
+    ESMDIFF_NO_NATIVE_PDB is set (the pure-Python parser then).  A failed
+    build raises."""
+    global _pdbio
+    if os.environ.get("ESMDIFF_NO_NATIVE_PDB"):
+        return None
+    with _pdbio_lock:
+        if _pdbio is not None:
+            return _pdbio
+        lib = native.load("pdbio")
+        c = ctypes
+        lib.pdbio_init.restype = None
+        lib.pdbio_init.argtypes = [c.c_char_p, c.c_char_p,
+                                   c.POINTER(c.c_int), c.c_int, c.c_int]
+        lib.pdbio_parse.restype = c.c_void_p
+        lib.pdbio_parse.argtypes = [c.c_char_p, c.c_int64, c.c_char]
+        lib.pdbio_n_models.restype = c.c_int
+        lib.pdbio_n_models.argtypes = [c.c_void_p]
+        lib.pdbio_model_len.restype = c.c_int
+        lib.pdbio_model_len.argtypes = [c.c_void_p, c.c_int]
+        lib.pdbio_model_fill.restype = None
+        lib.pdbio_model_fill.argtypes = [
+            c.c_void_p, c.c_int, c.POINTER(c.c_float), c.POINTER(c.c_float),
+            c.POINTER(c.c_float), c.POINTER(c.c_int), c.POINTER(c.c_int)]
+        lib.pdbio_free.restype = None
+        lib.pdbio_free.argtypes = [c.c_void_p]
+
+        res3 = sorted(rc.restype_3to1.items())
+        idxs = (c.c_int * len(res3))(*[
+            rc.restype_order.get(one, rc.unk_restype_index)
+            for _, one in res3])
+        lib.pdbio_init(",".join(rc.atom_types).encode(),
+                       ",".join(k for k, _ in res3).encode(), idxs,
+                       len(res3), rc.unk_restype_index)
+        _pdbio = lib
+        return lib
+
+
+def _native_parse_models(pdb_str: str,
+                         chain_id: str | None) -> list[Protein] | None:
+    """The native parse, or None where the Python parser decides: the
+    parser is switched off, the text is not ASCII (native byte columns
+    would shift against Python's character columns), or a line holds what
+    the C++ cannot parse exactly as Python does."""
+    lib = _load_pdbio()
+    if lib is None:
+        return None
+    try:
+        data = pdb_str.encode("ascii")
+    except UnicodeEncodeError:
+        return None
+    h = lib.pdbio_parse(data, len(data),
+                        chain_id.encode()[:1] if chain_id else b"\x00")
+    if not h:
+        return None
+    ptr = ctypes.POINTER
+    try:
+        prots = []
+        for m in range(lib.pdbio_n_models(h)):
+            L = lib.pdbio_model_len(h, m)
+            pos = np.zeros((L, rc.atom_type_num, 3), np.float32)
+            mask = np.zeros((L, rc.atom_type_num), np.float32)
+            bfac = np.zeros((L, rc.atom_type_num), np.float32)
+            aatype = np.zeros((L,), np.int32)
+            residx = np.zeros((L,), np.int32)
+            if L:
+                lib.pdbio_model_fill(
+                    h, m, pos.ctypes.data_as(ptr(ctypes.c_float)),
+                    mask.ctypes.data_as(ptr(ctypes.c_float)),
+                    bfac.ctypes.data_as(ptr(ctypes.c_float)),
+                    aatype.ctypes.data_as(ptr(ctypes.c_int)),
+                    residx.ctypes.data_as(ptr(ctypes.c_int)))
+                prots.append(Protein(pos, mask, aatype, residx, bfac))
+        return prots
+    finally:
+        lib.pdbio_free(h)
+
 
 def _parse_model_lines(lines: list[str], chain_id: str | None) -> Protein:
     residues: dict[tuple[str, int, str], dict] = {}
@@ -212,8 +303,11 @@ def from_pdb_string(
 ) -> Protein | list[Protein]:
     """Parse a PDB string.  Returns one Protein, or a list when the file has
     multiple MODEL records and ``model`` is None.  Raises ValueError when
-    the text holds no residue."""
-    prots = _python_parse_models(pdb_str, chain_id)
+    the text holds no residue.  The native parser and the Python one give
+    the same Proteins (tests/test_torch_protein_io.py)."""
+    prots = _native_parse_models(pdb_str, chain_id)
+    if prots is None:
+        prots = _python_parse_models(pdb_str, chain_id)
     if not prots:
         raise ValueError("no residues in the PDB text")
     if model is not None:
@@ -284,3 +378,58 @@ def ensemble_to_pdb_file(
     tmp = path.with_name(path.name + ".tmp")
     tmp.write_text(ensemble_to_pdb(prots, chain_id))
     os.replace(tmp, path)
+
+
+def to_pdb(prot: Protein, chain_id: str = "A") -> str:
+    return to_pdb_body(prot, chain_id) + "\nEND\n"
+
+
+def to_pdb_file(prot: Protein, path: str | Path, chain_id: str = "A") -> None:
+    Path(path).write_text(to_pdb(prot, chain_id))
+
+
+def merge_pdb_files(paths: Iterable[str | Path], out_path: str | Path) -> None:
+    """Concatenate single-model PDBs into one multi-MODEL file."""
+    prots: list[Protein] = []
+    for p in paths:
+        got = from_pdb_file(p)
+        prots.extend(got if isinstance(got, list) else [got])
+    ensemble_to_pdb_file(prots, out_path)
+
+
+def split_pdb_file(path: str | Path, out_dir: str | Path) -> list[Path]:
+    """Split a multi-MODEL PDB into per-model files ``<stem>.<i>.pdb``."""
+    got = from_pdb_file(path)
+    prots = got if isinstance(got, list) else [got]
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    outs = []
+    for i, p in enumerate(prots):
+        fp = out_dir / f"{Path(path).stem}.{i}.pdb"
+        to_pdb_file(p, fp)
+        outs.append(fp)
+    return outs
+
+
+def load_ca_ensemble(path: str | Path,
+                     max_n_model: int | None = None) -> np.ndarray:
+    """(N_models, L, 3) CA coordinates from a (multi-model) PDB, a ``.npy``
+    trajectory in nm ((N, L, 3), or (N, L, atoms, 3) with CA at atom 1;
+    scaled x10 to angstrom), or a directory of PDBs concatenated in sorted
+    order; ``max_n_model`` keeps that many models at a stride."""
+    path = Path(path)
+    if path.is_dir():
+        arr = np.concatenate([load_ca_ensemble(f)
+                              for f in sorted(path.iterdir())
+                              if f.suffix == ".pdb"], axis=0)
+    elif path.suffix == ".npy":
+        arr = np.load(path) * 10.0
+        if arr.ndim == 4:
+            arr = arr[:, :, 1]
+    else:
+        got = from_pdb_file(path)
+        prots = got if isinstance(got, list) else [got]
+        arr = np.stack([p.ca_coords() for p in prots], axis=0)
+    if max_n_model is not None and len(arr) > max_n_model > 0:
+        arr = arr[::len(arr) // max_n_model][:max_n_model]
+    return arr

@@ -254,3 +254,11 @@ class StructureTokenDecoder(nn.Module):
             tm_per_bin = 1.0 / (1.0 + (bin_centers / d0) ** 2)
             out["ptm"] = (pae_probs @ tm_per_bin).mean(dim=(1, 2))
         return out
+
+
+def decode_structure_tokens(decoder: StructureTokenDecoder, structure_tokens):
+    """Tokens (with BOS/EOS) -> backbone coordinates and pLDDT with BOS/EOS
+    stripped, and pTM, as the JAX package's ``decode_structure_tokens``."""
+    out = decoder(structure_tokens)
+    return {"bb_pred": out["bb_pred"][:, 1:-1],
+            "plddt": out["plddt"][:, 1:-1], "ptm": out.get("ptm")}

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime
+from esmdiff_tpu_torch.cli import analyze as analyze_cli
 from esmdiff_tpu_torch.cli import dump as dump_cli
 from esmdiff_tpu_torch.cli import sample as cli
 from esmdiff_tpu_torch.cli import serve as serve_cli
@@ -135,6 +136,32 @@ def test_ar_modules_import_without_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_eval_modules_import_without_jax_pandas_or_matplotlib():
+    """The evaluation slice's modules by name, with jax, flax, pandas and
+    matplotlib blocked: the suites, the plots module (matplotlib is
+    imported only when a plot is drawn) and esmdiff-torch-analyze."""
+    probe = ("import sys\n"
+             "for m in ('jax', 'flax', 'pandas', 'matplotlib'):\n"
+             "    sys.modules[m] = None\n"
+             "import esmdiff_tpu_torch.eval, esmdiff_tpu_torch.eval.plots"
+             ", esmdiff_tpu_torch.cli.analyze, esmdiff_tpu_torch.utils.native\n"
+             "from esmdiff_tpu_torch.eval import (align, analysis, geo, "
+             "metrics, tmscore)\n"
+             "from esmdiff_tpu_torch.eval.plots import scatterplot_apo\n"
+             "try:\n"
+             "    scatterplot_apo([0.5], [0.5], 'never.png')\n"
+             "except ImportError as e:\n"
+             "    assert 'needs matplotlib' in str(e), e\n"
+             "else:\n"
+             "    raise AssertionError('drew without matplotlib')\n"
+             "assert not [m for m in sys.modules if m == 'esmdiff_tpu' or "
+             "m.startswith('esmdiff_tpu.')]\n")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert not (ROOT / "never.png").exists()
+
+
 def test_no_jax_import_lines():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|esmdiff_tpu)\b")
     files = sorted((ROOT / "esmdiff_tpu_torch").rglob("*.py"))
@@ -185,6 +212,18 @@ def test_train_vqvae_cli_without_device_raises(no_cuda, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         train_vqvae_cli.main([*args, "--device", "cpu", "--data_parallel"])
     assert not (tmp_path / "vq").exists()
+
+
+def test_analyze_cli_without_device_raises(no_cuda, tmp_path):
+    """esmdiff-torch-analyze runs on cuda by default: without a card it
+    raises before it reads or writes anything, unless --device cpu."""
+    for task in (["bpti", "--preds", "p.pdb", "--target", "t.npy"],
+                 ["apo", "--samples", "s", "--pairs-csv", "p.csv",
+                  "--structures", "d"],
+                 ["ped", "--preds", "p.pdb", "--targets", "d"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            analyze_cli.main([*task, "--output", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
 
 
 def test_server_without_device_raises(no_cuda):
