@@ -155,7 +155,29 @@ Phases, each of which fails loudly (no error is caught):
      samples against bpti.pdb (1e-6), and, printed, how far the library's
      RMSD lies above the optimal fit's (geo.rmsd: an SVD); each suite's
      seconds, the peak GiB, the g++ builds' seconds;
- 12. print the card, each path's numbers, the kernels line, and as the
+ 12. the weights path, after the eval path: seeded reference-layout files
+     at full width (convert/verify.py's generators; the weights are not in
+     the repo), written and read as a user's: an ESMDiff release
+     (Lightning state_dict, net.* = the 1.4B structure-head trunk,
+     sigma_embedder.*), the stock esm3_sm_open_v1 trunk (the same body,
+     the six heads, the 4096-way structure head), ESM3's VQ encoder and
+     decoder (30 x 1280); esmdiff-torch-verify of each on the card (worst
+     relative diff <= 1e-3) and a planted fault (layers 20 and 21 swapped
+     through key_overrides) above that at exactly those layers;
+     vqvae_from_reference, then load_runtime of the release with it: every
+     tensor equal to the file's as held (bit for bit after the held
+     cast), load seconds and peak GiB, the full-width trunk logits on the
+     kernel path (bf16) against the oracle's float32 forward of the file
+     within twice the spread of two plain roundings; cli.sample --ckpt
+     --vqvae_ckpt, ddpm as it ships on both targets (100-MODEL PDBs, exact
+     launches, conf/s beside the default path's); --mode gibbs --ckpt on
+     the stock file (BPTI x 100, exact launches); model.pretrained_ckpt:
+     3 unpacked steps of configs/mdlm.yaml at full width on the train
+     path's corpus (the trunk equal to the file after init, finite
+     losses, ms a step, flash 95 a step); the function decoder at its
+     default geometry, the card against the CPU in float32 (1e-5
+     relative); the runbook's --fixture chain at tiny width (on the CPU);
+ 13. print the card, each path's numbers, the kernels line, and as the
      last line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA card or without the
 rest of the repo beside it.
@@ -1776,8 +1798,8 @@ def train_path(torch, runtime, ops, card):
         failures.append(f"--ckpt sample launches {ckpt_numbers}")
     launches["flash_attention"] += ckpt_numbers["flash_launches"]
     del rt, loaded, own, saved
-    for sub in (corpus, work / "sample"):
-        shutil.rmtree(sub)
+    # the corpus stays for the weights path's fine-tune
+    shutil.rmtree(work / "sample")
     torch.cuda.empty_cache()
     numbers = {"card": card, "phase_s": time.time() - t_phase,
                "trunk_dense_params": n_dense, "corpus": corpus_numbers,
@@ -2784,6 +2806,357 @@ def eval_path(torch, ops, card, ensembles):
             "scores": scores, "phase_s": time.time() - t_phase}, launches
 
 
+# the weights path: seeded reference-layout files at full width, written
+# and read as a user's would be; the planted fault swaps these two trunk
+# layers' tensors through key_overrides
+WEIGHTS_DIR = ROOT / "output" / "chip_smoke_weights"
+SWAPPED_LAYERS = (20, 21)
+VERIFY_TOL = 1e-3
+FD_BATCH = 64      # residue groups of the function decoder's check
+
+
+def saved(torch, obj, path):
+    """torch.save ``obj`` to ``path``: {file, gb, write_s}."""
+    t0 = time.time()
+    torch.save(obj, path)
+    return {"file": path.name, "gb": path.stat().st_size / 1e9,
+            "write_s": time.time() - t0}
+
+
+def verified(torch, tv, path, component):
+    """``esmdiff-torch-verify <path> --component <component>`` on the card
+    (its own gate at VERIFY_TOL): {rows, worst_rel_diff, s}."""
+    t0 = time.time()
+    rows = tv.check([str(path), "--component", component, "--device",
+                     "cuda", "--tol", str(VERIFY_TOL)])
+    torch.cuda.synchronize()
+    return {"rows": len(rows), "worst_rel_diff": max(r["rel_diff"]
+                                                     for r in rows),
+            "read_and_verify_s": time.time() - t0}
+
+
+def held_differ(torch, module, sd, rules, skip=()):
+    """Names of ``module``'s tensors that differ from the file's tensor
+    (``sd[rules[name]]``) cast to the dtype the module holds."""
+    return [name for name, t in module.state_dict().items()
+            if name not in skip and not torch.equal(
+                t, sd[rules[name]].to(device=t.device, dtype=t.dtype))]
+
+
+@contextlib.contextmanager
+def after_init(module, check):
+    """Runs ``check(mdlm, cfg)`` right after each ``module.init_params``
+    call (the trainer's init) while the block runs."""
+    orig = module.init_params
+
+    def wrapped(mdlm, cfg):
+        orig(mdlm, cfg)
+        check(mdlm, cfg)
+
+    module.init_params = wrapped
+    try:
+        yield
+    finally:
+        module.init_params = orig
+
+
+def weights_path(torch, ops, card, target_dirs, lws, default_targets,
+                 corpus):
+    """The weights path (module docstring): seeded reference-layout files
+    at full width, esmdiff-torch-verify of each and a planted fault,
+    load_runtime of the release, ddpm over --ckpt, gibbs over the stock
+    file, model.pretrained_ckpt through the trainer on ``corpus``, the
+    function decoder card against CPU, the runbook's --fixture chain.
+    Returns (numbers, flash launches of the driven runs)."""
+    import numpy as np
+
+    from esmdiff_tpu_torch.api.generation import plan_batches
+    from esmdiff_tpu_torch.cli import sample as cli
+    from esmdiff_tpu_torch.convert import checkpoints
+    from esmdiff_tpu_torch.convert import torch_ckpt as tc
+    from esmdiff_tpu_torch.convert import verify as tv
+    from esmdiff_tpu_torch.models.esm3 import ESM3, ESM3Config
+    from esmdiff_tpu_torch.models.function_decoder import (
+        FunctionDecoderConfig, FunctionTokenDecoder)
+    from esmdiff_tpu_torch.models.vqvae import DecoderConfig, EncoderConfig
+    from esmdiff_tpu_torch.nn.attention import plain_attention_with_lengths
+    from esmdiff_tpu_torch.nn.layers import Dense
+    from esmdiff_tpu_torch.tools import real_weight_day
+    from esmdiff_tpu_torch.train import loop as train_loop
+    from esmdiff_tpu_torch.train.config import load_config
+
+    t_phase = time.time()
+    fa = ops["flash_attention"]
+    work = WEIGHTS_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    numbers = {"card": card}
+
+    # (a) the files: an ESMDiff release (Lightning state_dict: net.* = the
+    # structure-head trunk, sigma_embedder.*), the stock esm3_sm_open_v1
+    # trunk (the same body, the six heads), ESM3's VQ encoder and decoder
+    rel_cfg, stock_cfg = ESM3Config(head_type="structure"), ESM3Config()
+    t0 = time.time()
+    release_sd, stock_sd = tv.make_reference_trunk_state_dicts(
+        [rel_cfg, stock_cfg])
+    sigma_sd = tv.make_reference_sigma_embedder_state_dict(rel_cfg.d_model,
+                                                           seed=1)
+    enc_sd = tv.make_reference_encoder_state_dict(EncoderConfig())
+    dec_sd = tv.make_reference_decoder_state_dict(DecoderConfig())
+    files = {"release": work / "release_v0.ckpt",
+             "stock": work / "esm3_sm_open_v1.pth",
+             "vq_encoder": work / "esm3_structure_encoder_v0.pth",
+             "vq_decoder": work / "esm3_structure_decoder_v0.pth"}
+    written = {"generate_s": time.time() - t0}
+    for key, obj in (("release", tv.release_checkpoint(release_sd, sigma_sd)),
+                     ("stock", stock_sd), ("vq_encoder", enc_sd),
+                     ("vq_decoder", dec_sd)):
+        written[key] = saved(torch, obj, files[key])
+    del enc_sd
+    numbers["files"] = written
+    print("[weights files] " + json.dumps(written), flush=True)
+
+    # (b) esmdiff-torch-verify of each file on the card; the planted fault
+    verify = {key: verified(torch, tv, files[key], comp) for key, comp in (
+        ("release", "trunk"), ("stock", "trunk"),
+        ("vq_encoder", "vqvae_encoder"), ("vq_decoder", "vqvae_decoder"))}
+    swap = {}
+    for name in tv._block_specs("L", 1, 1):
+        a, b = (name.replace("L", f"transformer.blocks.{i}", 1)
+                for i in SWAPPED_LAYERS)
+        swap.update({a: b, b: a})
+    t0 = time.time()
+    rows = tv.verify_trunk(tc.load_torch_state_dict(str(files["release"])),
+                           key_overrides=swap, device="cuda")
+    hit = {f"block{i}" for i in SWAPPED_LAYERS}
+    planted = {"layers": list(SWAPPED_LAYERS),
+               "hit_rel_diff": {r["layer"]: r["rel_diff"] for r in rows
+                                if r["layer"] in hit},
+               "others_worst": max(r["rel_diff"] for r in rows
+                                   if r["layer"] not in hit),
+               "s": time.time() - t0}
+    verify["planted_swap"] = planted
+    numbers["verify"] = verify
+    print("[weights verify] " + json.dumps(verify), flush=True)
+    if not (min(planted["hit_rel_diff"].values()) > VERIFY_TOL
+            >= planted["others_worst"]) or len(planted["hit_rel_diff"]) != 2:
+        raise AssertionError(f"the planted layer swap does not read above "
+                             f"{VERIFY_TOL} at exactly its layers: {planted}")
+    torch.cuda.empty_cache()
+
+    # (c) the VQ pair converted, load_runtime of the release with it
+    t0 = time.time()
+    vq_dir = checkpoints.vqvae_from_reference(
+        files["vq_encoder"], files["vq_decoder"], work / "vqvae")
+    convert_s = time.time() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    rt = checkpoints.load_runtime(files["release"], vqvae_ckpt=str(vq_dir),
+                                  device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    load_peak = torch.cuda.max_memory_allocated() / 2**30
+    rules = tc.trunk_rules(rel_cfg.n_layers, rel_cfg.n_layers_geom,
+                           "structure")
+    differ = held_differ(torch, rt.trunk, release_sd, rules)
+    differ += held_differ(
+        torch, rt.sigma_embedder,
+        {tc.SIGMA_PREFIX + k: v for k, v in sigma_sd.items()},
+        {k: tc.SIGMA_PREFIX + v for k, v in tc.sigma_embedder_rules().items()})
+    differ += held_differ(torch, rt.decoder, dec_sd,
+                          tc.vqvae_decoder_rules(rt.decoder.cfg.n_layers),
+                          skip=tc.NO_SOURCE["vqvae_decoder"])
+    del dec_sd
+    if differ:
+        raise AssertionError(f"load_runtime's tensors differ from the "
+                             f"file's: {differ[:8]}")
+    kernel = trunk_logits(torch, rt, {})
+    rel, floor = kernel_vs_plain(
+        torch, rt, {}, {(fa, "flash_attention"): fa.flash_attention_reference},
+        {(fa, "flash_attention"): plain_attention_with_lengths})
+    seq = rt.seq_tokenizer.encode(target_sequence(ROOT / TARGET))
+    with torch.no_grad():
+        oracle = tv.oracle_trunk_logits(
+            release_sd, rel_cfg,
+            torch.as_tensor(seq[None], dtype=torch.long, device="cuda"))[0]
+    rel_oracle = ((kernel - oracle).norm() / oracle.norm()).item()
+    del oracle
+    runtime_numbers = {
+        "vqvae_from_reference_s": convert_s, "load_s": load_s,
+        "load_peak_gib": load_peak, "trunk_head_type":
+            rt.trunk.cfg.head_type, "held_dtype": str(
+                rt.trunk.transformer.blocks[1].attn.qkv.weight.dtype),
+        "tensors_equal_file": len(rt.trunk.state_dict())
+        + len(rt.sigma_embedder.state_dict()) + len(rt.decoder.state_dict())
+        - len(tc.NO_SOURCE["vqvae_decoder"]),
+        "trunk_logits_rel_l2_kernel_vs_oracle_fp32": rel_oracle,
+        "trunk_logits_rel_l2_kernel_vs_plain": rel,
+        "trunk_logits_rel_l2_plain_roundings": floor}
+    numbers["runtime"] = runtime_numbers
+    print("[weights runtime] " + json.dumps(runtime_numbers), flush=True)
+    if not rel_oracle <= 2 * floor:
+        raise AssertionError(f"converted trunk logits, kernel path (bf16) vs "
+                             f"the oracle's float32 forward of the file: "
+                             f"relative L2 {rel_oracle}, more than twice the "
+                             f"two plain roundings' {floor}")
+
+    # (d) ddpm over --ckpt --vqvae_ckpt, as the CLI ships it: one request
+    # through the flags (the CLI loads the files), then each target timed
+    # on the runtime the CLI's build_runtime gives for the same flags
+    ckpt_flags = ["--ckpt", str(files["release"]), "--vqvae_ckpt",
+                  str(vq_dir)]
+    t0 = time.time()
+    cli.main(["--input", str(ROOT / TARGET), "--output",
+              str(work / "ddpm_flags"), "--mode", "ddpm", "--num_steps", "1",
+              "--num_samples", "8", *ckpt_flags])
+    flags_s = time.time() - t0
+    dec_layers = rt.decoder.cfg.n_layers
+    driven = drive(
+        torch, rt, ops, "weights path, ddpm --ckpt",
+        {key: (d, path_launches(rt.trunk.cfg, dec_layers, lws[key], False))
+         for key, d in target_dirs.items()},
+        work / "ddpm")
+    ddpm = {"flags_request_s": flags_s}
+    for key, n in driven.items():
+        r = n["report"]
+        plan = plan_batches(lws[key], NUM_SAMPLES, policy="single")
+        ddpm[key] = {
+            "L": r["L"], "batches": plan, "total_s": r["total_sec"],
+            "conformations_per_s": NUM_SAMPLES / r["total_sec"],
+            "ms_per_step": 1e3 * r["sampling_sec"]
+            / (len(plan) * (NUM_STEPS + 1)),
+            "default_path_conformations_per_s":
+                default_targets[key]["conformations_per_s"],
+            "default_path_ms_per_step": default_targets[key]["ms_per_step"],
+            "peak_memory_gib": n["peak_memory_gib"],
+            "launches": n["launches"]["flash_attention"]}
+    numbers["ddpm"] = ddpm
+    print("[weights ddpm] " + json.dumps(ddpm), flush=True)
+    launches = sum(n["launches"]["flash_attention"] for n in driven.values())
+    del rt, kernel
+    torch.cuda.empty_cache()
+
+    # (e) gibbs over the stock file: the head type read from it
+    args = cli.get_argparser().parse_args(
+        ["--ckpt", str(files["stock"]), "--vqvae_ckpt", str(vq_dir),
+         "--mode", "gibbs"])
+    t0 = time.time()
+    stock_rt = cli.build_runtime(args)
+    torch.cuda.synchronize()
+    stock_load_s = time.time() - t0
+    if stock_rt.trunk.cfg.head_type != "esm3":
+        raise AssertionError(f"the stock file loaded with head type "
+                             f"{stock_rt.trunk.cfg.head_type}")
+    differ = held_differ(torch, stock_rt.trunk, stock_sd, tc.trunk_rules(
+        stock_cfg.n_layers, stock_cfg.n_layers_geom, "esm3"))
+    if differ:
+        raise AssertionError(f"stock runtime's tensors differ from the "
+                             f"file's: {differ[:8]}")
+    del stock_sd
+    n_plan = len(plan_batches(lws["bpti"], NUM_SAMPLES, policy="single"))
+    g = drive(torch, stock_rt, ops, "weights path, gibbs --ckpt",
+              {"bpti": (target_dirs["bpti"], path_launches(
+                  stock_rt.trunk.cfg, dec_layers, lws["bpti"], False,
+                  [GIBBS_STEPS] * n_plan))},
+              work / "gibbs", mode="gibbs", num_steps=GIBBS_STEPS)["bpti"]
+    r = g["report"]
+    gibbs = {"load_s": stock_load_s, "L": r["L"], "total_s": r["total_sec"],
+             "conformations_per_s": NUM_SAMPLES / r["total_sec"],
+             "ms_per_step": 1e3 * r["sampling_sec"] / (n_plan * GIBBS_STEPS),
+             "peak_memory_gib": g["peak_memory_gib"],
+             "launches": g["launches"]["flash_attention"]}
+    numbers["gibbs"] = gibbs
+    print("[weights gibbs] " + json.dumps(gibbs), flush=True)
+    launches += gibbs["launches"]
+    del stock_rt
+    torch.cuda.empty_cache()
+
+    # (f) model.pretrained_ckpt: three unpacked steps of configs/mdlm.yaml
+    # at full width from the release, on the train path's corpus
+    cfg = load_config(str(ROOT / "configs/mdlm.yaml"))
+    with torch.device("meta"):
+        n_dense = sum(m.weight.numel() for m in
+                      ESM3(train_loop.trunk_config(cfg)).modules()
+                      if isinstance(m, Dense))
+    init_equal = []
+
+    def trunk_is_file(mdlm, _cfg):
+        init_equal.append(not held_differ(torch, mdlm.net, release_sd, rules))
+
+    with after_init(train_loop, trunk_is_file):
+        tuned, steps, evals, fails = train_run(
+            torch, fa, [f"data.path={corpus}", "data.pack_len=0",
+                        "trainer.max_epochs=1", "trainer.limit_batches=0.2",
+                        "trainer.log_every_n_steps=1",
+                        f"model.pretrained_ckpt={files['release']}"],
+            work / "finetune", n_dense)
+    want = 2 * rel_cfg.n_layers - rel_cfg.n_layers_geom
+    tuned["trunk_equals_file_after_init"] = init_equal == [True]
+    tuned["flash_per_step_want"] = want
+    numbers["finetune"] = tuned
+    print("[weights finetune] " + json.dumps(tuned), flush=True)
+    if fails or init_equal != [True] or len(steps) != 3 or \
+            tuned["flash_per_train_step"] != [want]:
+        raise AssertionError(f"model.pretrained_ckpt fine-tune: {fails}, "
+                             f"trunk equal after init {init_equal}, "
+                             f"{len(steps)} steps, flash a step "
+                             f"{tuned['flash_per_train_step']} (want {want})")
+    launches += sum(r["flash"] for r in steps + evals)
+    shutil.rmtree(work / "finetune")
+    del release_sd, sigma_sd
+    torch.cuda.empty_cache()
+
+    # (g) the function decoder at its default geometry: the card against
+    # the CPU in float32, both converted from one fixture
+    fcfg = FunctionDecoderConfig()
+    fsd = tv.make_reference_function_decoder_state_dict(fcfg)
+    outs = {}
+    toks = torch.as_tensor(np.random.RandomState(0).randint(
+        0, fcfg.function_token_vocab, (FD_BATCH, fcfg.function_token_depth)))
+    for dev in ("cuda", "cpu"):
+        with torch.device(dev):
+            fd = FunctionTokenDecoder(fcfg).eval()
+        tc.convert_function_decoder(fd, fsd)
+        with torch.no_grad():
+            outs[dev] = {k: v.cpu() for k, v in fd(toks.to(dev)).items()}
+    fd_rel = {k: ((outs["cuda"][k] - outs["cpu"][k]).abs().max()
+                  / outs["cpu"][k].abs().max()).item() for k in outs["cpu"]}
+    fd_numbers = {"params": sum(t.numel() for t in fsd.values()),
+                  "rel_max_card_vs_cpu": fd_rel,
+                  "verify_worst_rel_diff": max(r["rel_diff"] for r in
+                                               tv.verify_function_decoder(
+                                                   fsd, fcfg, device="cuda"))}
+    numbers["function_decoder"] = fd_numbers
+    print("[weights function decoder] " + json.dumps(fd_numbers), flush=True)
+    if max(fd_rel.values()) > 1e-5 or \
+            fd_numbers["verify_worst_rel_diff"] > VERIFY_TOL:
+        raise AssertionError(f"function decoder card vs CPU: {fd_numbers}")
+    del fsd, outs
+
+    # (h) the runbook's --fixture chain at tiny width (on the CPU: the tiny
+    # trunk's Dh 16 is no flash shape)
+    t0 = time.time()
+    rwd = real_weight_day.main(["--fixture", "--device", "cpu", "--workdir",
+                                str(work / "real_weight_day")])
+    numbers["real_weight_day"] = {
+        "s": time.time() - t0, "verify": rwd["verify"],
+        "quant_argmax_agree_min": min(r["argmax_agree"]
+                                      for r in rwd["quant_parity"])}
+    shutil.rmtree(work)
+    shutil.rmtree(corpus.parent)
+    numbers["launches"] = {"flash_attention": launches}
+    numbers["phase_s"] = time.time() - t_phase
+    return numbers, launches
+
+
+def target_sequence(directory):
+    """The sequence of the one PDB of a target directory."""
+    from esmdiff_tpu_torch.api.protein_api import ESMProtein
+
+    return ESMProtein.from_pdb(next(Path(directory).glob("*.pdb"))).sequence
+
+
 def main() -> int:
     import torch
 
@@ -3000,7 +3373,7 @@ def main() -> int:
     a_numbers["runtime_ckpt_vqvae_ckpt"], ckpt_flash = ar_ckpt_request(
         torch, ops, card, mdlm_ckpt, export)
     shutil.rmtree(export.parent)
-    shutil.rmtree(mdlm_ckpt.parent.parent)
+    shutil.rmtree(mdlm_ckpt.parent)  # the run; the corpus beside it stays
     a_launches = {**dict.fromkeys(KERNELS, 0),
                   "flash_attention": a_flash + ckpt_flash}
     print("[ar path] " + json.dumps(a_numbers), flush=True)
@@ -3012,7 +3385,16 @@ def main() -> int:
                            / f"{key}.pdb" for key in target_dirs})
     print("[eval path] " + json.dumps(e_numbers), flush=True)
 
-    # 12. the kernels line (headline shape: the trunk's), the device line;
+    # 12. the weights path: reference-layout files at full width through
+    # esmdiff-torch-verify, load_runtime, --ckpt (ddpm and gibbs),
+    # model.pretrained_ckpt on the train path's corpus, the function
+    # decoder, the runbook
+    w_numbers, w_flash = weights_path(
+        torch, ops, card, target_dirs, lws, path_numbers(driven),
+        ROOT / "output" / "chip_smoke_train" / "corpus")
+    print("[weights path] " + json.dumps(w_numbers), flush=True)
+
+    # 13. the kernels line (headline shape: the trunk's), the device line;
     # launches from the paths that run the kernel, fused_ffn's from its
     # phase (no model path runs it)
     by_path = {"default path": launches, "fused path": f_launches,
@@ -3020,10 +3402,12 @@ def main() -> int:
                "inpaint path": i_launches,
                "train path": {**dict.fromkeys(KERNELS, 0), **t_launches},
                "vqvae path": {**dict.fromkeys(KERNELS, 0), **v_launches},
-               "ar path": a_launches, "eval path": e_launches}
+               "ar path": a_launches, "eval path": e_launches,
+               "weights path": {**dict.fromkeys(KERNELS, 0),
+                                "flash_attention": w_flash}}
     launches_from = {"flash_attention": ("default path", "inpaint path",
                                          "train path", "vqvae path",
-                                         "ar path"),
+                                         "ar path", "weights path"),
                      "small_attention": ("fused path",),
                      "fused_qkv": ("fused path",)}
     entries = []

@@ -27,24 +27,17 @@ import torch
 
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
 from esmdiff_tpu_torch.convert import checkpoints
-from esmdiff_tpu_torch.models.esm3 import esm3_tiny
-from esmdiff_tpu_torch.models.vqvae import DecoderConfig, EncoderConfig
 
 
 def build_runtime(args) -> ESM3Runtime:
-    """The runtime of ``--ckpt`` (a training run of the port), or random
-    weights at ``--model_scale`` (the stock-head trunk)."""
+    """The runtime of ``--ckpt`` (a training run of the port or a
+    reference PyTorch file, at its own geometry), or random weights at
+    ``--model_scale`` (the stock-head trunk)."""
     if args.ckpt:
         return checkpoints.load_runtime(args.ckpt, device=args.device)
-    if args.model_scale == "tiny":
-        return ESM3Runtime.random_init(
-            seed=args.seed, trunk_cfg=esm3_tiny(dtype="float32"),
-            encoder_cfg=EncoderConfig(d_model=64, n_heads=2, v_heads=8,
-                                      n_layers=2, d_out=16, knn=8),
-            decoder_cfg=DecoderConfig(d_model=64, n_heads=2, n_layers=2,
-                                      dtype="float32"),
-            device=args.device)
-    return ESM3Runtime.random_init(seed=args.seed, device=args.device)
+    return ESM3Runtime.random_init(
+        seed=args.seed, device=args.device,
+        **checkpoints.scale_configs(args.model_scale))
 
 
 def get_argparser():

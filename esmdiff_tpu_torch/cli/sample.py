@@ -14,13 +14,15 @@ projects each decoded CA trace into the bond/clash validity band.
 Inpainting: ``--mask_ids`` (residues to generate; ddpm and gibbs) or
 ``--filled_ids`` (residues to keep; ddpm) condition the ensemble on the
 target's structure through the VQ-VAE encoder.  ``--ckpt`` loads a
-training run of the port (``convert/checkpoints.py``), paired with a
-trained VQ-VAE by ``--vqvae_ckpt`` (``esmdiff-torch-train-vqvae``'s export;
-without ``--ckpt`` it exits with an error).  With several ``--input``
-directories each target lands in ``<output>/<dir name>/``, names that
-collide qualified by their parents (``a--targets``, ``b--targets``).  The
-JAX package's checkpoints, profiling and data parallelism are not ported
-yet and raise.
+training run of the port or a reference PyTorch file (an ESMDiff release
+or the stock ``esm3_sm_open_v1`` trunk, its geometry and head type read
+from the file; ``convert/checkpoints.py``),
+paired with a VQ-VAE by ``--vqvae_ckpt`` (``esmdiff-torch-train-vqvae``'s
+export or ``vqvae_from_reference``'s conversion; without ``--ckpt`` it
+exits with an error).  With several ``--input`` directories each target
+lands in ``<output>/<dir name>/``, names that collide qualified by their
+parents (``a--targets``, ``b--targets``).  The JAX package's checkpoints,
+profiling and data parallelism are not ported yet and raise.
 
     python -m esmdiff_tpu_torch.cli.sample --input data/targets/bpti \\
         --output output/torch --mode gibbs --num_steps 16 --num_samples 100
@@ -29,6 +31,7 @@ yet and raise.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -41,8 +44,6 @@ from esmdiff_tpu_torch.api.generation import EnsembleSampler, GenerationConfig
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
 from esmdiff_tpu_torch.convert import checkpoints
 from esmdiff_tpu_torch.core import protein as protein_io
-from esmdiff_tpu_torch.models.esm3 import ESM3Config, esm3_tiny
-from esmdiff_tpu_torch.models.vqvae import DecoderConfig, EncoderConfig
 from esmdiff_tpu_torch.ops.refine import refine_ca_ensemble
 
 
@@ -51,33 +52,26 @@ def _not_ported(what: str):
 
 
 def build_runtime(args) -> ESM3Runtime:
-    """The runtime of ``--ckpt`` (a training run of the port), or random
-    weights at ``--model_scale``: the fine-tune structure head for ddpm,
-    the stock multi-track head for gibbs and eb.  With ``--quant int8`` the
-    trunk is quantized from its float32 weights."""
+    """The runtime of ``--ckpt`` (a training run of the port or a
+    reference PyTorch file), or random weights at ``--model_scale``: the
+    fine-tune structure head for ddpm, the stock multi-track head for
+    gibbs and eb.  With ``--quant int8`` the trunk is quantized from its
+    float32 weights."""
     if args.vqvae_ckpt and not args.ckpt:
         raise SystemExit("--vqvae_ckpt pairs a trained VQ-VAE with a "
                          "trunk: it needs --ckpt")
     if args.ckpt:
-        runtime = checkpoints.load_runtime(
-            args.ckpt, vqvae_ckpt=args.vqvae_ckpt, device=args.device)
-        return runtime.quantize(args.quant) if args.quant != "none" \
-            else runtime
+        return checkpoints.load_runtime(
+            args.ckpt, vqvae_ckpt=args.vqvae_ckpt, device=args.device,
+            quant=args.quant)
     print("[warning] no --ckpt given: sampling with RANDOM weights "
           "(throughput/dev runs only — outputs are not physical ensembles)")
-    head = "structure" if args.mode == "ddpm" else "esm3"
-    if args.model_scale == "full":
-        return ESM3Runtime.random_init(
-            seed=args.seed, trunk_cfg=ESM3Config(head_type=head),
-            device=args.device, quant=args.quant)
-    return ESM3Runtime.random_init(
-        seed=args.seed,
-        trunk_cfg=esm3_tiny(head_type=head, dtype="float32"),
-        encoder_cfg=EncoderConfig(d_model=64, n_heads=2, v_heads=8,
-                                  n_layers=2, d_out=16, knn=8),
-        decoder_cfg=DecoderConfig(d_model=64, n_heads=2, n_layers=2,
-                                  dtype="float32"),
-        device=args.device, quant=args.quant)
+    cfgs = checkpoints.scale_configs(args.model_scale)
+    cfgs["trunk_cfg"] = dataclasses.replace(
+        cfgs["trunk_cfg"],
+        head_type="structure" if args.mode == "ddpm" else "esm3")
+    return ESM3Runtime.random_init(seed=args.seed, device=args.device,
+                                   quant=args.quant, **cfgs)
 
 
 def get_argparser():

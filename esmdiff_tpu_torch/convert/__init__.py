@@ -10,7 +10,8 @@ sigma embedder, VQ decoder or encoder, or, as a whole MDLM params tree
 tree, and ``state_dict_to_flax`` goes back, so that gradients and optimizer
 steps can be compared leaf by leaf.  numpy in, nothing else: this package
 imports neither JAX nor the JAX package (``checkpoints`` loads the port's
-own training runs).
+own training runs and reference PyTorch files, whose rule tables are
+``torch_ckpt``'s and whose oracles are ``verify``'s).
 
 Mapping (the port's modules use the flax names, so only leaves change):
   - a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), and a

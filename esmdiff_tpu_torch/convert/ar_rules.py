@@ -12,43 +12,16 @@ to its HF key and a layout transform:
   - T5's relative-attention table lives in block 0 of each stack;
   - GPT-2's token-type embeddings are rows 0 and 1 of ``wte``.
 
-``load_torch_state_dict`` and ``strip_prefix`` are the port's own copies
-of ``esmdiff_tpu/convert/torch_to_jax.py``'s (tensors kept as float32 CPU
-tensors rather than numpy arrays).
+``load_torch_state_dict`` and ``strip_prefix`` live in
+``convert/torch_ckpt.py`` and are re-exported here.
 """
 
 from __future__ import annotations
 
-import re
 from typing import Callable
 
-import torch
-
-
-def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
-    """``torch.load`` + layout unwrap: a bare state dict, DeepSpeed's
-    consolidated ``module``, or Lightning's ``state_dict``; the
-    ``_forward_module.``, ``module.`` and ``model.`` key prefixes are
-    dropped and every tensor becomes float32 on the CPU."""
-    obj = torch.load(path, map_location="cpu", weights_only=False)
-    if isinstance(obj, dict) and isinstance(obj.get("module"), dict):
-        obj = obj["module"]
-    if isinstance(obj, dict) and "state_dict" in obj:
-        obj = obj["state_dict"]
-    out = {}
-    for k, v in obj.items():
-        if not hasattr(v, "detach"):
-            continue
-        k = re.sub(r"^(_forward_module\.)", "", k)
-        k = re.sub(r"^(module\.)", "", k)
-        k = re.sub(r"^(model\.)", "", k)
-        out[k] = v.detach().float().cpu()
-    return out
-
-
-def strip_prefix(sd: dict, prefix: str) -> dict:
-    """The entries under ``prefix``, with it removed; the others dropped."""
-    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+from esmdiff_tpu_torch.convert.torch_ckpt import (  # noqa: F401
+    load_torch_state_dict, strip_prefix)
 
 
 def _id(x):

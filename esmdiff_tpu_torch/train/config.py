@@ -57,7 +57,8 @@ class ModelConfig:
     n_heads: int = 0
     n_layers: int = 0
     v_heads: int = 0
-    pretrained_ckpt: Optional[str] = None  # torch ckpt (not ported yet)
+    # reference torch file filling the trunk (train/loop.load_pretrained)
+    pretrained_ckpt: Optional[str] = None
     n_structure_heads: int = 4101
     n_sequence_heads: int = 0
     dtype: str = "bfloat16"

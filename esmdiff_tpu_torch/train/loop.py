@@ -10,9 +10,10 @@ The run's composed ``config.yaml`` is written beside it, from which
 
 One device (the card unless the caller asks for the CPU).  ``build_clm``
 and ``build_jlm`` build the AR nets of a config (the sampling CLI's
-``--config``).  Not ported yet, and raising: training the CLM/JLM tasks,
-multi-device strategies and multihost, ``model.pretrained_ckpt`` and
-``model.param_dtype`` other than float32.
+``--config``).  ``model.pretrained_ckpt`` fills the trunk from a
+reference PyTorch file after the seeded init (``init_params``).  Not
+ported yet, and raising: training the CLM/JLM tasks, multi-device
+strategies and multihost, and ``model.param_dtype`` other than float32.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from esmdiff_tpu_torch.convert import torch_ckpt
 from esmdiff_tpu_torch.core import constants as C
 from esmdiff_tpu_torch.device import resolve_device
 from esmdiff_tpu_torch.diffusion.mdlm import MDLM, GeneratorDraws, MDLMConfig
@@ -132,14 +134,33 @@ def mdlm_modules(mdlm: MDLM) -> nn.ModuleDict:
 
 def init_params(mdlm: MDLM, cfg: TrainConfig) -> None:
     """Random weights from ``cfg.seed`` (flax's initialisers' scales; not
-    JAX's bits), on the modules' device."""
-    if cfg.model.pretrained_ckpt:
-        _not_ported("model.pretrained_ckpt (converting a PyTorch ESM3 "
-                    "checkpoint)")
+    JAX's bits), on the modules' device; then, with
+    ``model.pretrained_ckpt``, the weights of that file
+    (``load_pretrained``)."""
     dev = next(mdlm.net.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(int(cfg.seed))
     init_module_params(mdlm.net, gen)
     init_module_params(mdlm.sigma_embedder, gen)
+    if cfg.model.pretrained_ckpt:
+        load_pretrained(mdlm, cfg.model.pretrained_ckpt)
+
+
+def load_pretrained(mdlm: MDLM, path: str) -> dict:
+    """Fill the MDLM's trunk, and its sigma embedder when the file has
+    one, from a reference PyTorch file, strictly
+    (``convert/torch_ckpt.py::convert_mdlm``): a stock ESM3 file fills all
+    but the new output heads, which keep their init.  (The JAX package
+    converts the trunk alone, with ``strict=False``, and a stock file's
+    4096-way head raises there on its shape.)"""
+    report = torch_ckpt.convert_mdlm(
+        mdlm.net, mdlm.sigma_embedder, torch_ckpt.load_torch_state_dict(path))
+    sigma = ("from the file" if report["sigma"]
+             else "seeded (none in the file)")
+    print(f"[init] pretrained trunk from {path}: {report['converted']} "
+          f"tensors; kept their init: "
+          f"{len(report['no_source'])} (the new output heads) "
+          f"{report['no_source'][:2]}; sigma embedder {sigma}")
+    return report
 
 
 def build_task(cfg: TrainConfig, device=None):

@@ -162,6 +162,30 @@ def test_eval_modules_import_without_jax_pandas_or_matplotlib():
     assert not (ROOT / "never.png").exists()
 
 
+def test_weights_modules_import_without_jax():
+    """The reference-checkpoint slice's modules by name, with jax, flax,
+    optax and orbax blocked: the converter, the verifier (its CLI), the
+    function decoder, load_runtime's torch-file path and the runbook."""
+    probe = ("import sys\n"
+             "for m in ('jax', 'flax', 'optax', 'orbax', "
+             "'orbax.checkpoint'):\n    sys.modules[m] = None\n"
+             "import esmdiff_tpu_torch.convert.torch_ckpt"
+             ", esmdiff_tpu_torch.convert.verify"
+             ", esmdiff_tpu_torch.models.function_decoder"
+             ", esmdiff_tpu_torch.tools.real_weight_day\n"
+             "from esmdiff_tpu_torch.convert.checkpoints import ("
+             "load_runtime, vqvae_from_reference, convert_ar)\n"
+             "from esmdiff_tpu_torch.convert.verify import (main, "
+             "verify_trunk, verify_vqvae_decoder, verify_vqvae_encoder, "
+             "verify_function_decoder, verify_clm, verify_jlm)\n"
+             "from esmdiff_tpu_torch.train.loop import load_pretrained\n"
+             "assert not [m for m in sys.modules if m == 'esmdiff_tpu' or "
+             "m.startswith('esmdiff_tpu.')]\n")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
 def test_no_jax_import_lines():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|esmdiff_tpu)\b")
     files = sorted((ROOT / "esmdiff_tpu_torch").rglob("*.py"))
@@ -233,19 +257,25 @@ def test_server_without_device_raises(no_cuda):
 
 
 def test_unported_modes_raise(tmp_path):
-    """What stays unported raises: a PyTorch ESM3 trunk file as --ckpt
-    (the port's own training runs load: tests/test_torch_train_loop.py),
-    profiling and data parallelism (inpainting, --mask_ids/--filled_ids,
-    is ported: tests/test_torch_inpaint.py)."""
-    for extra in (["--ckpt", "trunk.pt"], ["--data_parallel"],
-                  ["--profile", str(tmp_path / "trace")]):
+    """What stays unported raises: profiling and data parallelism
+    (inpainting, --mask_ids/--filled_ids, is ported:
+    tests/test_torch_inpaint.py).  A --ckpt that names no file raises
+    rather than falling back to random weights (PyTorch trunk files and
+    the port's own runs load: tests/test_torch_convert_weights.py,
+    tests/test_torch_train_loop.py)."""
+    for extra in (["--data_parallel"], ["--profile", str(tmp_path / "trace")]):
         with pytest.raises(NotImplementedError, match="not ported"):
             cli.main(["--output", str(tmp_path), "--model_scale", "tiny",
                       "--device", "cpu", *extra])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(FileNotFoundError, match="trunk.pt"):
+        cli.main(["--output", str(tmp_path), "--model_scale", "tiny",
+                  "--device", "cpu", "--ckpt", "trunk.pt"])
+    with pytest.raises(FileNotFoundError, match="trunk.pt"):
         dump_cli.main([str(ROOT / "data/targets/bpti"), str(tmp_path),
                        "--ckpt", "trunk.pt", "--device", "cpu"])
-    for extra in (["--ckpt", "trunk.pt"], ["--data_parallel"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            serve_cli.main(["--model_scale", "tiny", "--device", "cpu",
-                            "--port", "0", *extra])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        serve_cli.main(["--model_scale", "tiny", "--device", "cpu",
+                        "--port", "0", "--data_parallel"])
+    with pytest.raises(FileNotFoundError, match="trunk.pt"):
+        serve_cli.main(["--model_scale", "tiny", "--device", "cpu",
+                        "--port", "0", "--ckpt", "trunk.pt"])

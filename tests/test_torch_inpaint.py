@@ -311,5 +311,5 @@ def test_dump_matches_jax(runtimes, tmp_path, monkeypatch):
                 np.testing.assert_array_equal(got[key], ref[key])
             np.testing.assert_allclose(got["embeddings"], ref["embeddings"],
                                        atol=1e-4)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(FileNotFoundError, match="trunk.pt"):
         tdump.main([str(src), str(tmp_path / "x"), "--ckpt", "trunk.pt"])

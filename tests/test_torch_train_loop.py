@@ -15,11 +15,12 @@ import torch
 from esmdiff_tpu.train import config as jconfig
 from esmdiff_tpu_torch.cli import sample as sample_cli
 from esmdiff_tpu_torch.cli import train as train_cli
-from esmdiff_tpu_torch.convert import checkpoints
+from esmdiff_tpu_torch.convert import checkpoints, torch_ckpt
+from esmdiff_tpu_torch.convert import verify as tverify
 from esmdiff_tpu_torch.core import constants as C
 from esmdiff_tpu_torch.models.esm3 import ESM3, esm3_tiny
 from esmdiff_tpu_torch.train import config as tconfig
-from esmdiff_tpu_torch.train.loop import train
+from esmdiff_tpu_torch.train.loop import build_task, init_params, train
 from esmdiff_tpu_torch.utils.checkpoint import CheckpointManager, load_params
 
 torch.set_num_threads(2)
@@ -226,7 +227,6 @@ def test_sample_with_ckpt_writes_a_pdb(smoke_run, tmp_path):
     ("trainer.strategy=fsdp", "strategy"),
     ("trainer.strategy=dp2xtp2", "strategy"),
     ("trainer.multihost=true", "multihost"),
-    ("model.pretrained_ckpt=/x/esm3.pt", "pretrained_ckpt"),
     ("model.param_dtype=bfloat16", "param_dtype"),
 ])
 def test_unported_training_raises(corpus, tmp_path, override, match):
@@ -237,10 +237,36 @@ def test_unported_training_raises(corpus, tmp_path, override, match):
         train(cfg, device="cpu")
 
 
+def _release_fixture(path):
+    """A tiny ESMDiff release file (Lightning, ``net.*`` and
+    ``sigma_embedder.*``): (its trunk's state dict, its sigma embedder's)."""
+    trunk = tverify.make_reference_trunk_state_dict(
+        esm3_tiny(head_type="structure"))
+    sigma = tverify.make_reference_sigma_embedder_state_dict(64)
+    torch.save(tverify.release_checkpoint(trunk, sigma), path)
+    return trunk, sigma
+
+
+def test_pretrained_ckpt_loads(corpus, tmp_path):
+    """model.pretrained_ckpt: the trainer's init fills the trunk and the
+    sigma embedder with the file's tensors."""
+    trunk, sigma = _release_fixture(tmp_path / "release.ckpt")
+    cfg = tconfig.load_config(None, [
+        f"data.path={corpus}", *TINY, f"trainer.ckpt_dir={tmp_path}",
+        f"model.pretrained_ckpt={tmp_path / 'release.ckpt'}"])
+    mdlm, _ = build_task(cfg, "cpu")
+    init_params(mdlm, cfg)
+    rules = torch_ckpt.trunk_rules(4, 1, "structure")
+    for name, value in mdlm.net.state_dict().items():
+        assert torch.equal(value, trunk[rules[name]]), name
+    assert torch.equal(mdlm.sigma_embedder.fc1.weight, sigma["mlp.0.weight"])
+
+
 def test_unported_loading_raises(smoke_run, tmp_path):
     """A JAX package's orbax VQ-VAE directory (vqvae.json beside
-    ``params/``) as --vqvae_ckpt, its orbax run directories and a PyTorch
-    trunk file raise "not ported"; so does remat_policy "dots"."""
+    ``params/``) as --vqvae_ckpt and its orbax run directories raise "not
+    ported"; so does remat_policy "dots".  A PyTorch trunk file loads: its
+    trunk equals the file's."""
     _, run = smoke_run
     jax_vq = tmp_path / "jax_vqvae"
     (jax_vq / "params").mkdir(parents=True)
@@ -252,7 +278,10 @@ def test_unported_loading_raises(smoke_run, tmp_path):
     (tmp_path / "orbax").mkdir()
     with pytest.raises(NotImplementedError, match="orbax.*not ported"):
         checkpoints.load_runtime(tmp_path / "orbax", device="cpu")
-    with pytest.raises(NotImplementedError, match="torch_to_jax.*not ported"):
-        checkpoints.load_runtime(tmp_path / "trunk.pt", device="cpu")
+    trunk, _ = _release_fixture(tmp_path / "trunk.pt")
+    runtime = checkpoints.load_runtime(tmp_path / "trunk.pt", device="cpu")
+    rules = torch_ckpt.trunk_rules(4, 1, "structure")
+    for name, value in runtime.trunk.state_dict().items():
+        assert torch.equal(value, trunk[rules[name]]), name
     with pytest.raises(NotImplementedError, match="not ported"):
         ESM3(esm3_tiny(remat_policy="dots"))
