@@ -177,13 +177,42 @@ Phases, each of which fails loudly (no error is caught):
      losses, ms a step, flash 95 a step); the function decoder at its
      default geometry, the card against the CPU in float32 (1e-5
      relative); the runbook's --fixture chain at tiny width (on the CPU);
- 13. print the card, each path's numbers, the kernels line, and as the
+ 13. the pipeline path, after the weights path (``pipeline_path``): (a)
+     every chain of data/targets/{apo,codnas,ped} written as mmCIF (a
+     third gzipped, every 47th at 6 A, a file that does not parse) and
+     three two-chain complexes, through esmdiff-torch-preprocess
+     --with_dssp --num_workers 8 (chain mode, then complex mode): the
+     statuses, the DSSP on the card equal to the CPU on every chain, the
+     .npz positions equal to the PDB parser's (5e-4 A), the DSSP's share;
+     (b) esmdiff-torch-dump --with_embeddings of every second .npz chain
+     at full width (a fresh seed-0 runtime): tokens equal to a dump of
+     the same chains' PDB files, flash 48 a chain, embeddings GiB, the
+     seconds of the trunk forwards and of the writes; (c)
+     configs/clm.yaml and configs/jlm.yaml, one epoch each on that dump
+     through esmdiff-torch-train (the JLM at batch 8: 16 does not fit):
+     warm ms a step, tokens/s, peak GiB, the save; finite losses, the last
+     quarter's under the first's; on 2 rows of one batch, the config
+     dtype's loss and grad norm against the float32 net within twice the
+     gap of float32 products of the bf16 operands; (d)
+     esmdiff-torch-sample-ar --config --ckpt <best step dir> on BPTI x 32
+     (the net equal to the run's tensors, finite PDBs, no special
+     sampled, conf/s), then esmdiff-torch-analyze ped (finite); (e) 6
+     unpacked steps of configs/mdlm.yaml on the train path's corpus under
+     model.remat_policy=dots and under model.param_dtype=bfloat16 (ms a
+     step, peak GiB, flash 95 a step, the dtypes), one batch's gradient
+     under "dots" against "nothing" on the same weights (within the train
+     path's two plain roundings); (f) esmdiff-torch-sweep --search sha,
+     2 trials over optim.lr, bf16 parameters, on 32 chains of the dump:
+     the promoted trial resumes its own checkpoint, best.json names the
+     best; each part's seconds; every directory deleted after;
+ 14. print the card, each path's numbers, the kernels line, and as the
      last line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA card or without the
 rest of the repo beside it.
 """
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -2329,20 +2358,22 @@ def ar_decoder(model, emb, ids):
     return step
 
 
+def float32_product(self, x):
+    """A ``Dense.forward`` whose product is a float32 product of the same
+    bf16 operands: another rounding of the same bf16 net."""
+    import torch.nn.functional as F
+
+    bias = None if self.bias is None else self.bias.to(self.dtype).float()
+    return F.linear(x.to(self.dtype).float(),
+                    self.weight.to(self.dtype).float(), bias).to(self.dtype)
+
+
 def ar_gate(torch, model, emb, ids):
     """Relative L2 of the cached decode's logits against the teacher-forced
     forward on the same tokens, and the floor: the forward against itself
     with every Dense product accumulated as a float32 product of the same
     bf16 operands (another rounding of the same bf16 net)."""
-    import torch.nn.functional as F
-
     from esmdiff_tpu_torch.nn.layers import Dense
-
-    def float32_product(self, x):
-        bias = None if self.bias is None else self.bias.to(self.dtype).float()
-        return F.linear(x.to(self.dtype).float(),
-                        self.weight.to(self.dtype).float(),
-                        bias).to(self.dtype)
 
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item()
@@ -3143,11 +3174,674 @@ def weights_path(torch, ops, card, target_dirs, lws, default_targets,
         "s": time.time() - t0, "verify": rwd["verify"],
         "quant_argmax_agree_min": min(r["argmax_agree"]
                                       for r in rwd["quant_parity"])}
-    shutil.rmtree(work)
-    shutil.rmtree(corpus.parent)
+    shutil.rmtree(work)  # the corpus stays for the pipeline path
     numbers["launches"] = {"flash_attention": launches}
     numbers["phase_s"] = time.time() - t_phase
     return numbers, launches
+
+
+# -- the pipeline path ---------------------------------------------------------
+
+PIPELINE_DIR = ROOT / "output" / "chip_smoke_pipeline"
+# what the pipeline path drives: the configs (the repo's), the device, the
+# JLM's batch (16 does not fit: its plain attention keeps ~6 bytes of
+# scores and probabilities a (head, query, key) for backward, ~77 GB at
+# 16 rows of 1025 positions over 48 layers), the switch runs' steps, the
+# chains dumped with embeddings (every second one: the whole corpus took
+# ~100 s of the script's 1200 on an H100 80GB HBM3 at 700 W), the sweep's
+# corpus, the preprocess workers, the AR samples
+PIPELINE = {"configs": {"clm": "configs/clm.yaml", "jlm": "configs/jlm.yaml",
+                        "mdlm": "configs/mdlm.yaml"},
+            "device": "cuda", "jlm_batch": 8, "switch_steps": 6,
+            "embed_every": 2,
+            "sweep_chains": 32, "workers": 8, "ar_samples": 32}
+CIF_TARGETS = ("apo", "codnas", "ped")
+LOW_RES_EVERY = 47     # every 47th chain written at 6 A: resolution-filtered
+POSITION_TOL = 5e-4    # A: the files' 3 decimals
+GATE_ROWS = 2          # rows of the AR gate's batch (a float32 JLM forward)
+
+
+def proteins_to_mmcif(chain_items, entry_id, resolution=1.8,
+                      oligomeric="monomeric") -> str:
+    """A minimal mmCIF of ``chain_items`` [(chain id, Protein)]: header
+    (id, resolution, method, oligomeric details) and the atom_site loop,
+    3 decimals, as tests/test_mmcif.py writes its fixtures."""
+    from esmdiff_tpu_torch.core import residue_constants as rc
+
+    lines = [f"data_{entry_id}", f"_entry.id {entry_id}",
+             f"_refine.ls_d_res_high {resolution}",
+             "_exptl.method 'X-RAY DIFFRACTION'", "#",
+             f"_pdbx_struct_assembly.oligomeric_details {oligomeric}", "#",
+             "loop_"]
+    lines += [f"_atom_site.{c}" for c in (
+        "group_PDB", "id", "label_atom_id", "label_alt_id", "label_comp_id",
+        "auth_asym_id", "auth_seq_id", "pdbx_PDB_ins_code", "Cartn_x",
+        "Cartn_y", "Cartn_z", "B_iso_or_equiv", "pdbx_PDB_model_num")]
+    rts3 = [rc.restype_1to3[r] for r in rc.restypes] + ["UNK"]
+    serial = 1
+    for chain_id, prot in chain_items:
+        for i in range(len(prot.aatype)):
+            res3 = rts3[min(int(prot.aatype[i]), rc.restype_num)]
+            for ai, name in enumerate(rc.atom_types):
+                if prot.atom_mask[i, ai] < 0.5:
+                    continue
+                x, y, z = prot.atom_positions[i, ai]
+                lines.append(
+                    f"ATOM {serial} {name} . {res3} {chain_id} "
+                    f"{int(prot.residue_index[i])} ? {x:.3f} {y:.3f} {z:.3f} "
+                    f"{float(prot.b_factors[i, ai]):.2f} 1")
+                serial += 1
+    lines.append("#")
+    return "\n".join(lines) + "\n"
+
+
+def write_cif_corpus(work):
+    """Every chain under data/targets/{apo,codnas,ped} as one mmCIF file
+    (a third gzipped, every LOW_RES_EVERY-th at 6 A), a file that does
+    not parse, and three two-chain complexes (consecutive chains, the
+    second renumbered after the first).  Returns ({entry: (its PDB file,
+    the parsed chain)}, the chain and complex directories)."""
+    import gzip
+
+    from esmdiff_tpu_torch.core import protein as protein_io
+
+    chains, complexes = work / "cif", work / "cif_complex"
+    chains.mkdir(parents=True)
+    complexes.mkdir()
+    pdbs = [f for d in CIF_TARGETS
+            for f in sorted((ROOT / "data/targets" / d).glob("*.pdb"))]
+    entries, prots = {}, []
+    for i, pdb in enumerate(pdbs):
+        prot = protein_io.from_pdb_file(pdb)
+        prot = prot[0] if isinstance(prot, list) else prot
+        prots.append(prot)
+        entry = pdb.stem.replace(".", "_")
+        entries[entry] = pdb, prot
+        text = proteins_to_mmcif(
+            [("A", prot)], entry,
+            resolution=6.0 if i % LOW_RES_EVERY == LOW_RES_EVERY - 1 else 1.8)
+        if i % 3 == 0:
+            with gzip.open(chains / f"{entry}.cif.gz", "wt") as f:
+                f.write(text)
+        else:
+            (chains / f"{entry}.cif").write_text(text)
+    (chains / "broken.cif").write_text("data_broken\n#\n")
+    for k in range(3):
+        a, b = prots[2 * k], prots[2 * k + 1]
+        b = dataclasses.replace(
+            b, residue_index=b.residue_index - b.residue_index.min()
+            + a.residue_index.max() + 10)
+        (complexes / f"complex{k}.cif").write_text(
+            proteins_to_mmcif([("A", a), ("B", b)], f"complex{k}"))
+    return entries, chains, complexes
+
+
+def pipeline_mmcif(torch, fa, work, failures):
+    """(a): the mmCIF corpus through esmdiff-torch-preprocess --with_dssp
+    (chain mode over the chains, complex mode over the complexes); the
+    DSSP on the device against the CPU, the .npz positions against the
+    PDB parser's.  Returns (numbers, {npz stem: its PDB file})."""
+    import numpy as np
+
+    from esmdiff_tpu_torch.cli import preprocess
+    from esmdiff_tpu_torch.core import protein as protein_io
+    from esmdiff_tpu_torch.core.secondary_structure import \
+        assign_secondary_structure_batch
+
+    t0 = time.time()
+    entries, chains, complexes = write_cif_corpus(work)
+    write_s = time.time() - t0
+    out = {}
+    # the three complexes in this process: a pool would start 8 workers
+    # for 3 files
+    for mode, src, workers in (("chain", chains, PIPELINE["workers"]),
+                               ("complex", complexes, 1)):
+        dssp = []
+        t0 = time.time()
+        with calls(torch, preprocess, "add_dssp", fa, dssp):
+            rep = preprocess.main([
+                str(src), str(work / f"npz_{mode}"), "--mode", mode,
+                "--with_dssp", "--num_workers", str(workers),
+                "--device", PIPELINE["device"]])
+        s = time.time() - t0
+        dssp_s = sum(r["s"] for r in dssp)
+        statuses = {}
+        for r in rep["rows"]:
+            kind = r["status"].split(" ")[0].split(":")[0]
+            statuses[kind] = statuses.get(kind, 0) + 1
+        out[mode] = {"files": rep["files"], "s": s, "dssp_s": dssp_s,
+                     "dssp_share": dssp_s / s, "statuses": statuses,
+                     "rows": [r for r in rep["rows"] if r["status"] == "ok"]}
+    rows = out["chain"]["rows"] + out["complex"]["rows"]
+    # the DSSP strings the card wrote against the CPU's, every chain
+    prots, d_max, stems = [], 0.0, {}
+    for mode in out:
+        for r in out[mode]["rows"]:
+            with np.load(work / f"npz_{mode}" / f"{r['file']}.npz") as z:
+                prots.append(protein_io.Protein(
+                    z["atom_positions"], z["atom_mask"], z["aatype"],
+                    z["residue_index"], np.zeros_like(z["atom_mask"])))
+                if mode == "chain":
+                    pdb, ref = entries[r["pdb_name"]]
+                    stems[r["file"]] = pdb
+                    if not np.array_equal(ref.atom_mask, z["atom_mask"]):
+                        failures.append(f"mmcif {r['file']}: atom mask")
+                    m = ref.atom_mask > 0.5
+                    d_max = max(d_max, float(np.abs(
+                        ref.atom_positions[m] - z["atom_positions"][m]).max()))
+    t0 = time.time()
+    cpu = assign_secondary_structure_batch(prots, "cpu")
+    cpu_s = time.time() - t0
+    differ = [r["file"] for r, s in zip(rows, cpu)
+              if r["secondary_structure"] != s]
+    n_low = sum(1 for i in range(len(entries))
+                if i % LOW_RES_EVERY == LOW_RES_EVERY - 1)
+    numbers = {
+        "cif_files": out["chain"]["files"], "complex_files":
+            out["complex"]["files"], "write_s": write_s,
+        **{mode: {k: v for k, v in o.items() if k != "rows"}
+           for mode, o in out.items()},
+        "dssp_cpu_s": cpu_s, "dssp_chains": len(prots),
+        "dssp_card_vs_cpu_differ": differ,
+        "helix_strand_coil": [sum(r[f"frac_{k}"] * r["length"] for r in rows)
+                              for k in ("helix", "sheet", "coil")],
+        "npz_vs_pdb_max_abs_d": d_max}
+    want = {"ok": len(entries) - n_low, "resolution_filtered": n_low,
+            "parse_error": 1}
+    if out["chain"]["statuses"] != want or \
+            out["complex"]["statuses"] != {"ok": 3}:
+        failures.append(f"preprocess statuses {out['chain']['statuses']} "
+                        f"(want {want}), complex "
+                        f"{out['complex']['statuses']}")
+    if differ or d_max > POSITION_TOL:
+        failures.append(f"mmcif: DSSP card vs CPU differ on {differ[:8]}, "
+                        f"positions {d_max} A")
+    return numbers, stems
+
+
+def pipeline_dump(torch, fa, runtime, work, stems, failures):
+    """(b): esmdiff-torch-dump --with_embeddings over every
+    PIPELINE["embed_every"]-th preprocessed chain, its tokens against a
+    dump of the same chains' PDB files, the trunk's flash launches (a layer
+    a chain), the seconds of the trunk forwards and of the .npz writes."""
+    import numpy as np
+
+    from esmdiff_tpu_torch.cli import dump as dump_cli
+
+    npz, pdbs = work / "npz_embed", work / "pdb_links"
+    npz.mkdir()
+    pdbs.mkdir()
+    stems = dict(list(sorted(stems.items()))[::PIPELINE["embed_every"]])
+    for stem, pdb in stems.items():
+        (npz / f"{stem}.npz").symlink_to(work / "npz_chain" / f"{stem}.npz")
+        (pdbs / f"{stem}.pdb").symlink_to(pdb)
+    dump = work / "dump"
+    fa.launches = 0
+    forwards, writes = [], []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with calls(torch, runtime.trunk, "forward", fa, forwards), \
+            calls(torch, np, "savez_compressed", fa, writes):
+        n = dump_cli.main([str(npz), str(dump), "--with_embeddings"],
+                          runtime=runtime)
+    torch.cuda.synchronize()
+    s = time.time() - t0
+    flash = fa.launches
+    t0 = time.time()
+    dump_cli.main([str(pdbs), str(work / "dump_pdb")], runtime=runtime)
+    ref_s = time.time() - t0
+    differ, emb_bytes, lengths = [], 0, []
+    for stem in stems:
+        with np.load(dump / f"{stem}.npz") as z, \
+                np.load(work / "dump_pdb" / f"{stem}.npz") as r:
+            emb_bytes += z["embeddings"].nbytes
+            lengths.append(len(z["structure_tokens"]) - 2)
+            if not (np.array_equal(z["structure_tokens"],
+                                   r["structure_tokens"])
+                    and np.array_equal(z["sequence_tokens"],
+                                       r["sequence_tokens"])):
+                differ.append(stem)
+    layers = runtime.trunk.cfg.n_layers
+    want = n * layers if PIPELINE["device"] == "cuda" else 0
+    numbers = {"chains": n, "of_chains": len(list(
+                   (work / "npz_chain").glob("*.npz"))), "s": s,
+               "trunk_forward_s": sum(r["s"] for r in forwards),
+               "npz_write_s": sum(r["s"] for r in writes),
+               "pdb_dump_s": ref_s,
+               "embeddings_gib": emb_bytes / 2**30, "residues": sum(lengths),
+               "max_L": max(lengths), "tokens_differ_from_pdb_dump": differ,
+               "flash_launches": flash, "flash_launches_want": want}
+    if n != len(stems) or differ or flash != want:
+        failures.append(f"dump: {n} of {len(stems)} chains, tokens differ "
+                        f"on {differ[:8]}, flash {flash} (want {want})")
+    return numbers, dump, flash
+
+
+def ar_train_gate(torch, task, cfg, corpus, emb_dim):
+    """The first GATE_ROWS rows of one fixed batch, a fresh seeded net: the
+    loss and gradient norm of
+    the config's dtype (the trainer's), of the same net with every Dense
+    product a float32 product of its bf16 operands (another rounding), and
+    of the float32 net (the unrounded forward)."""
+    from esmdiff_tpu_torch.nn.layers import Dense
+    from esmdiff_tpu_torch.train import data as data_mod
+    from esmdiff_tpu_torch.train import loop as train_loop
+
+    dev = PIPELINE["device"]
+    split, _ = data_mod.train_val_split(
+        data_mod.EncodingDataset(cfg.data), cfg.data)
+    batch = train_loop.to_device({k: v[:GATE_ROWS] for k, v in next(
+        data_mod.batches(split, cfg.data, shuffle=True,
+                         seed=cfg.seed)).items()}, dev)
+    model, loss_fn = train_loop.build_task(cfg, dev, emb_dim=emb_dim)
+    train_loop.init_task(model, cfg)
+    f32_cfg = dataclasses.replace(cfg)
+    f32_cfg.model = dataclasses.replace(cfg.model)
+    setattr(f32_cfg.model, task, dataclasses.replace(
+        getattr(cfg.model, task), dtype="float32"))
+    f32, f32_loss = train_loop.build_task(f32_cfg, dev, emb_dim=emb_dim)
+    f32.load_state_dict(model.state_dict())
+
+    def run(net, fn):
+        net.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss, _ = fn(batch)
+            loss.backward()
+        grads = [p.grad.float() for p in net.parameters()
+                 if p.grad is not None]
+        return loss.item(), torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads])).item()
+
+    out = {"config": run(model, loss_fn), "float32": run(f32, f32_loss)}
+    orig = Dense.forward
+    Dense.forward = float32_product
+    try:
+        out["float32_products"] = run(model, loss_fn)
+    finally:
+        Dense.forward = orig
+    del model, f32
+    ref = out["float32"]
+    gate = {"batch_shape": list(batch["mask"].shape), **{
+        k: {"loss": v[0], "grad_norm": v[1]} for k, v in out.items()}}
+    for i, name in enumerate(("loss", "grad_norm")):
+        gate[f"{name}_rel_config"] = abs(out["config"][i] - ref[i]) / ref[i]
+        gate[f"{name}_rel_floor"] = \
+            abs(out["float32_products"][i] - ref[i]) / ref[i]
+    return gate
+
+
+def pipeline_ar_train(torch, fa, dump, card, failures):
+    """(c): configs/clm.yaml and configs/jlm.yaml at full width, one epoch
+    each on the dump (the JLM at PIPELINE["jlm_batch"]); the gate on one
+    fixed batch.  Returns (numbers, {task: best step directory})."""
+    import numpy as np
+
+    from esmdiff_tpu_torch.cli import train as train_cli
+    from esmdiff_tpu_torch.train import state as tstate
+    from esmdiff_tpu_torch.train.config import load_config
+    from esmdiff_tpu_torch.utils.checkpoint import CheckpointManager
+
+    with np.load(next(dump.glob("*.npz"))) as z:
+        emb_dim = int(z["embeddings"].shape[-1])
+    numbers, best = {}, {}
+    for task in ("clm", "jlm"):
+        run = PIPELINE_DIR / f"{task}_run"
+        overrides = [f"data.path={dump}", "trainer.max_epochs=1",
+                     "trainer.log_every_n_steps=1",
+                     f"trainer.ckpt_dir={run}", "trainer.print_config=false"]
+        if task == "jlm":
+            overrides.append(f"data.batch_size={PIPELINE['jlm_batch']}")
+        steps, evals, saves = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with stepped(torch, tstate, "train_step", fa, steps), \
+                stepped(torch, tstate, "eval_step", fa, evals), \
+                timed_saves(torch, CheckpointManager, saves):
+            result = train_cli.main([
+                "--config", str(ROOT / PIPELINE["configs"][task]),
+                "--device", PIPELINE["device"], *overrides])
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        warm = steps[1:]
+        warm_s = sum(r["ms"] for r in warm) / 1e3
+        losses = [r["loss"] for r in steps]
+        q = max(1, len(losses) // 4)
+        cfg = load_config(str(ROOT / PIPELINE["configs"][task]), overrides)
+        gc.collect()
+        torch.cuda.empty_cache()
+        gate = ar_train_gate(torch, task, cfg, str(dump), emb_dim)
+        numbers[task] = {
+            "overrides": overrides, "steps": result["steps"], "wall_s": wall,
+            "batch_shapes": sorted({tuple(r["shape"]) for r in steps}),
+            "first_step_ms": steps[0]["ms"],
+            "warm_ms_per_step": 1e3 * warm_s / max(1, len(warm)),
+            "real_tokens_per_s": sum(r["real_tokens"] for r in warm)
+            / warm_s,
+            "padded_tokens_per_s": sum(r["padded_tokens"] for r in warm)
+            / warm_s,
+            "peak_gib": peak, "losses": losses,
+            "grad_norms": [r["grad_norm"] for r in steps],
+            "first_quarter_loss": float(np.mean(losses[:q])),
+            "last_quarter_loss": float(np.mean(losses[-q:])),
+            "val_loss": result["best_val_loss"], "saves": saves,
+            "flash": sum(r["flash"] for r in steps + evals), "gate": gate}
+        print(f"[pipeline {task} train] " + json.dumps(numbers[task]),
+              flush=True)
+        finite = [*losses, *numbers[task]["grad_norms"],
+                  result["best_val_loss"]]
+        if not all(math.isfinite(x) for x in finite) or len(steps) < 4 or \
+                not numbers[task]["last_quarter_loss"] \
+                < numbers[task]["first_quarter_loss"] or len(saves) != 1:
+            failures.append(f"{task} training: finite {finite}, "
+                            f"{len(steps)} steps, {len(saves)} saves")
+        if numbers[task]["flash"]:
+            failures.append(f"{task} training launched flash")
+        for name in ("loss", "grad_norm"):
+            if not gate[f"{name}_rel_config"] <= \
+                    2 * gate[f"{name}_rel_floor"] + 1e-7:
+                failures.append(f"{task} gate: {name} {gate}")
+        best[task] = Path(json.loads(
+            (run / "ckpt" / "index.json").read_text())[0]["path"])
+        torch.cuda.empty_cache()
+    return numbers, best
+
+
+def pipeline_ar_sample(torch, fa, runtime, best, failures):
+    """(d): esmdiff-torch-sample-ar --config configs/{clm,jlm}.yaml --ckpt
+    <best step dir> on BPTI x PIPELINE["ar_samples"] (the runtime's trunk
+    gives the embeddings, its decoder the structures): the net holds the
+    run's tensors, finite PDBs, no special token; esmdiff-torch-analyze ped
+    on the ensemble."""
+    from esmdiff_tpu_torch.cli import analyze as analyze_cli
+    from esmdiff_tpu_torch.cli import sample_ar
+    from esmdiff_tpu_torch.convert import checkpoints
+    from esmdiff_tpu_torch.utils.checkpoint import load_params
+
+    n = PIPELINE["ar_samples"]
+    numbers, flash = {}, 0
+    for task, step_dir in best.items():
+        out = PIPELINE_DIR / f"{task}_samples"
+        saved = load_params(step_dir)
+        equal = []
+        orig = checkpoints.load_ar_params
+
+        def load(path, model, orig=orig, saved=saved, equal=equal):
+            model = orig(path, model)
+            own = model.state_dict()
+            equal.append(own.keys() == saved.keys() and all(
+                torch.equal(own[k].cpu(), v) for k, v in saved.items()))
+            return model
+
+        checkpoints.load_ar_params = load
+        before = fa.launches
+        try:
+            with recorded(sample_ar, f"{task}_generate") as batches:
+                (report,) = sample_ar.main([
+                    "--config", str(ROOT / PIPELINE["configs"][task]),
+                    "--ckpt", str(step_dir), "--input", str(ROOT / TARGET),
+                    "--output", str(out), "--n_samples", str(n),
+                    "--seed", "0", "--device", PIPELINE["device"]],
+                    runtime=runtime)
+        finally:
+            checkpoints.load_ar_params = orig
+        launched = fa.launches - before
+        flash += launched
+        pdb = out / f"{report['target']}.pdb"
+        check_pdb(pdb.read_text(), n, n * (report["L"] * 4 - 1), str(pdb))
+        specials = sum(int((b >= 4096).sum()) for b in batches)
+        t0 = time.time()
+        analyze_cli.main(["ped", "--preds", str(pdb), "--targets",
+                          str(ROOT / TARGET), "--output",
+                          str(out / "ped"), "--device", PIPELINE["device"]])
+        ped = json.loads((out / "ped" / "ped_metrics.json").read_text())
+        ped.pop("name")
+        values = [v for vs in ped.values() for v in vs]
+        numbers[task] = {
+            "L": report["L"], "n_samples": n, "total_s": report["total_sec"],
+            "conformations_per_s": n / report["total_sec"],
+            "tensors_equal_run": equal == [True], "specials": specials,
+            "flash_launches": launched, "ped_s": time.time() - t0,
+            "ped": ped}
+        if equal != [True] or specials or not all(
+                v is not None and math.isfinite(v) for v in values):
+            failures.append(f"{task} sample: {numbers[task]}")
+        shutil.rmtree(out)
+    return numbers, flash
+
+
+def switch_run(torch, fa, corpus, overrides, steps_n, want):
+    """``steps_n`` unpacked steps of configs/mdlm.yaml with ``overrides``
+    through the trainer's build, init and train step: ms a step (warm),
+    peak GiB, flash launches a step; returns (numbers, the state, the loss
+    function, the next batch)."""
+    from esmdiff_tpu_torch.diffusion.mdlm import GeneratorDraws
+    from esmdiff_tpu_torch.train import data as data_mod
+    from esmdiff_tpu_torch.train import loop as train_loop
+    from esmdiff_tpu_torch.train import state as tstate
+    from esmdiff_tpu_torch.train.config import load_config
+
+    dev = PIPELINE["device"]
+    cfg = load_config(str(ROOT / PIPELINE["configs"]["mdlm"]),
+                      [f"data.path={corpus}", "data.pack_len=0",
+                       *overrides])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, loss_fn = train_loop.build_task(cfg, dev)
+    train_loop.init_task(model, cfg)
+    modules = train_loop.task_modules(model)
+    state = tstate.create_train_state(modules, tstate.make_optimizer(
+        modules.parameters(), lr=cfg.optim.lr,
+        weight_decay=cfg.optim.weight_decay))
+    split, _ = data_mod.train_val_split(
+        data_mod.EncodingDataset(cfg.data), cfg.data)
+    batches = data_mod.batches(split, cfg.data, shuffle=True, seed=cfg.seed)
+    draws = GeneratorDraws(dev, seed=cfg.seed)
+    records = []
+    for _ in range(steps_n):
+        batch = train_loop.to_device(next(batches), dev)
+        torch.cuda.synchronize()
+        before, t0 = fa.launches, time.perf_counter()
+        m = tstate.train_step(state, loss_fn, batch, draws)
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        records.append({"ms": 1e3 * (time.perf_counter() - t0),
+                        "flash": fa.launches - before, "loss": loss,
+                        "shape": list(batch["mask"].shape)})
+    warm = records[1:]
+    numbers = {"overrides": overrides, "steps": len(records),
+               "first_step_ms": records[0]["ms"],
+               "warm_ms_per_step": sum(r["ms"] for r in warm) / len(warm),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "losses": [r["loss"] for r in records],
+               "batch_shapes": [r["shape"] for r in records],
+               "flash_per_step": sorted({r["flash"] for r in records}),
+               "flash_per_step_want": want,
+               "flash": sum(r["flash"] for r in records),
+               "param_dtypes": sorted({str(p.dtype).replace("torch.", "")
+                                       for p in modules.parameters()})}
+    return numbers, state, loss_fn, next(batches)
+
+
+def pipeline_switches(torch, fa, corpus, train_numbers, failures):
+    """(e): 6 unpacked steps of configs/mdlm.yaml on the train path's
+    corpus under model.remat_policy=dots and under
+    model.param_dtype=bfloat16; one batch's gradient under "dots" against
+    "nothing" on the same weights and draws, gated by the train path's
+    two plain roundings (its [train gate] plain version vs xla)."""
+    from esmdiff_tpu_torch.diffusion.mdlm import GeneratorDraws
+    from esmdiff_tpu_torch.models.esm3 import ESM3Config, remat_kwargs
+    from esmdiff_tpu_torch.train import loop as train_loop
+
+    tcfg = ESM3Config()
+    want = (2 * tcfg.n_layers - tcfg.n_layers_geom
+            if PIPELINE["device"] == "cuda" else 0)
+    numbers, flash = {}, 0
+    dots, state, loss_fn, batch = switch_run(
+        torch, fa, corpus, ["model.remat_policy=dots"],
+        PIPELINE["switch_steps"], want)
+    flash += dots["flash"]
+    # one batch, the same weights and draws, under both policies
+    batch = train_loop.to_device(batch, PIPELINE["device"])
+    stack = state.model["net"].transformer
+    grads = {}
+    for policy in ("nothing", "dots"):
+        stack.remat_kwargs = remat_kwargs(policy)
+        state.model.zero_grad(set_to_none=True)
+        before = fa.launches
+        with torch.enable_grad():
+            loss, _ = loss_fn(batch, GeneratorDraws(PIPELINE["device"],
+                                                    seed=0))
+            loss.backward()
+        flash += fa.launches - before
+        grads[policy] = {n: p.grad.clone() if policy == "nothing"
+                         else p.grad for n, p in
+                         state.model.named_parameters() if p.grad is not None}
+    diff2 = norm2 = 0.0
+    worst = 0.0
+    for n, g in grads["nothing"].items():
+        d = (grads["dots"][n] - g).float()
+        diff2 += d.norm().item() ** 2
+        norm2 += g.float().norm().item() ** 2
+        worst = max(worst, (d.norm() / g.float().norm().clamp_min(1e-30))
+                    .item())
+    floor = train_numbers["gate"]["plain_version"]["grad_rel_l2"]
+    dots["grad_rel_l2_dots_vs_nothing"] = math.sqrt(diff2 / norm2)
+    dots["grad_max_leaf_rel_l2_dots_vs_nothing"] = worst
+    dots["grad_rel_l2_floor"] = floor
+    del grads, state, loss_fn
+    torch.cuda.empty_cache()
+    numbers["dots"] = dots
+    bf16, state, _, _ = switch_run(
+        torch, fa, corpus, ["model.param_dtype=bfloat16"],
+        PIPELINE["switch_steps"], want)
+    opt_state = state.optimizer.adamw.state
+    bf16["moment_dtypes"] = sorted({str(s["exp_avg"].dtype).replace(
+        "torch.", "") for s in opt_state.values()})
+    flash += bf16["flash"]
+    del state
+    torch.cuda.empty_cache()
+    numbers["bf16_params"] = bf16
+    base = train_numbers["unpacked"]
+    numbers["nothing_float32_from_train_path"] = {
+        "warm_ms_per_step": base["warm_ms_per_step"],
+        "peak_gib": base["peak_gib"]}
+    for name, run in (("dots", dots), ("bf16", bf16)):
+        if run["flash_per_step"] != [want] or not all(
+                math.isfinite(x) for x in run["losses"]):
+            failures.append(f"{name} run: {run}")
+    if not dots["grad_rel_l2_dots_vs_nothing"] <= floor:
+        failures.append(f"dots vs nothing gradient {dots}")
+    if bf16["param_dtypes"] != ["bfloat16", "float32"] or \
+            bf16["moment_dtypes"] != ["bfloat16", "float32"]:
+        failures.append(f"bf16 run dtypes {bf16}")
+    return numbers, flash
+
+
+def pipeline_sweep(torch, fa, dump, failures):
+    """(f): esmdiff-torch-sweep --search sha at full width with bf16
+    parameters, 2 trials over optim.lr, eta 2, min_epochs 1, on the first
+    PIPELINE["sweep_chains"] chains of the dump: the promoted trial
+    resumes from its own checkpoint, best.json names the best trial."""
+    from esmdiff_tpu_torch.cli import sweep as sweep_cli
+    from esmdiff_tpu_torch.utils.checkpoint import CheckpointManager
+
+    subset = PIPELINE_DIR / "sweep_corpus"
+    subset.mkdir()
+    for f in sorted(dump.glob("*.npz"))[:PIPELINE["sweep_chains"]]:
+        (subset / f.name).symlink_to(f)
+    space = PIPELINE_DIR / "space.yaml"
+    space.write_text("space:\n  optim.lr: {type: loguniform, low: 1.0e-6, "
+                     "high: 1.0e-4}\n")
+    out = PIPELINE_DIR / "sweep"
+    trials, saves = [], []
+    before = fa.launches
+    t0 = time.time()
+    with calls(torch, sweep_cli, "_run_trial", fa, trials), \
+            timed_saves(torch, CheckpointManager, saves):
+        results = sweep_cli.main([
+            "--config", str(ROOT / PIPELINE["configs"]["mdlm"]),
+            "--space", str(space), "--n_trials", "2", "--search", "sha",
+            "--eta", "2", "--min_epochs", "1", "--output", str(out),
+            "--device", PIPELINE["device"], f"data.path={subset}",
+            "model.param_dtype=bfloat16", "trainer.print_config=false"])
+    wall = time.time() - t0
+    best = json.loads((out / "best.json").read_text())
+    rung0 = [r for r in results if r["rung"] == 0]
+    rung1 = [r for r in results if r["rung"] == 1]
+    numbers = {"s": wall, "trial_s": [r["s"] for r in trials],
+               "results": results,
+               "best": best, "saves": saves,
+               "flash_launches": fa.launches - before}
+    ok = (len(rung0) == 2 and len(rung1) == 1
+          and all(r.get("val_loss") is not None for r in results))
+    if ok:
+        winner = min(rung0, key=lambda r: r["val_loss"])
+        ok = (rung1[0]["trial"] == winner["trial"]
+              and rung1[0]["steps"] == 2 * winner["steps"]
+              and best["trial"] == min(results, key=lambda r: r["val_loss"])
+              ["trial"])
+    if not ok:
+        failures.append(f"sweep: {numbers}")
+    shutil.rmtree(out)
+    return numbers
+
+
+def pipeline_path(torch, ops, card, runtime, train_numbers, train_corpus):
+    """The pipeline path (module docstring, phase 13): (a)-(f).  Returns
+    (numbers, flash launches)."""
+    t_phase = time.time()
+    fa = ops["flash_attention"]
+    shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+    PIPELINE_DIR.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()  # the JLM's batch peaks at ~76 of 80 GB (H100)
+    failures, seconds = [], {}
+    numbers = {"card": card, "resident_gib_at_start":
+               torch.cuda.memory_allocated() / 2**30}
+
+    def report(key, value, t0):
+        seconds[key] = time.time() - t0
+        numbers[key] = value
+        print(f"[pipeline {key}] " + json.dumps(value), flush=True)
+        if failures:
+            raise AssertionError(f"pipeline path ({key}): "
+                                 + "; ".join(failures))
+
+    t0 = time.time()
+    mm, stems = pipeline_mmcif(torch, fa, PIPELINE_DIR, failures)
+    report("mmcif", mm, t0)
+    t0 = time.time()
+    dumped, dump, flash = pipeline_dump(torch, fa, runtime, PIPELINE_DIR,
+                                        stems, failures)
+    report("dump", dumped, t0)
+    t0 = time.time()
+    ar, best = pipeline_ar_train(torch, fa, dump, card, failures)
+    report("ar train", {k: {"warm_ms_per_step": v["warm_ms_per_step"],
+                            "peak_gib": v["peak_gib"]}
+                        for k, v in ar.items()}, t0)
+    t0 = time.time()
+    sampled, f = pipeline_ar_sample(torch, fa, runtime, best, failures)
+    flash += f
+    for task in best:
+        shutil.rmtree(PIPELINE_DIR / f"{task}_run")
+    report("ar sample", sampled, t0)
+    t0 = time.time()
+    switches, f = pipeline_switches(torch, fa, train_corpus, train_numbers,
+                                    failures)
+    flash += f
+    shutil.rmtree(train_corpus.parent)
+    report("switches", switches, t0)
+    t0 = time.time()
+    swept = pipeline_sweep(torch, fa, dump, failures)
+    flash += swept["flash_launches"]
+    report("sweep", swept, t0)
+    shutil.rmtree(PIPELINE_DIR)
+    numbers["ar_train"] = ar
+    numbers["seconds"] = seconds
+    numbers["phase_s"] = time.time() - t_phase
+    numbers["launches"] = {"flash_attention": flash}
+    return numbers, flash
 
 
 def target_sequence(directory):
@@ -3394,7 +4088,25 @@ def main() -> int:
         ROOT / "output" / "chip_smoke_train" / "corpus")
     print("[weights path] " + json.dumps(w_numbers), flush=True)
 
-    # 13. the kernels line (headline shape: the trunk's), the device line;
+    # 13. the pipeline path: an mmCIF corpus through esmdiff-torch-preprocess
+    # (DSSP on the card), the dump with embeddings, CLM and JLM training,
+    # sample-ar over the trained runs and ped analysis, the MDLM under
+    # remat_policy=dots and bf16 parameters, the sweep
+    t0 = time.time()
+    p_runtime = ESM3Runtime.random_init(
+        seed=0, trunk_cfg=ESM3Config(head_type="structure"), device="cuda")
+    torch.cuda.synchronize()
+    p_init_s = time.time() - t0
+    p_numbers, p_flash = pipeline_path(
+        torch, ops, card, p_runtime, t_numbers,
+        ROOT / "output" / "chip_smoke_train" / "corpus")
+    p_numbers["runtime_init_s"] = p_init_s
+    del p_runtime
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[pipeline path] " + json.dumps(p_numbers), flush=True)
+
+    # 14. the kernels line (headline shape: the trunk's), the device line;
     # launches from the paths that run the kernel, fused_ffn's from its
     # phase (no model path runs it)
     by_path = {"default path": launches, "fused path": f_launches,
@@ -3404,10 +4116,13 @@ def main() -> int:
                "vqvae path": {**dict.fromkeys(KERNELS, 0), **v_launches},
                "ar path": a_launches, "eval path": e_launches,
                "weights path": {**dict.fromkeys(KERNELS, 0),
-                                "flash_attention": w_flash}}
+                                "flash_attention": w_flash},
+               "pipeline path": {**dict.fromkeys(KERNELS, 0),
+                                 "flash_attention": p_flash}}
     launches_from = {"flash_attention": ("default path", "inpaint path",
                                          "train path", "vqvae path",
-                                         "ar path", "weights path"),
+                                         "ar path", "weights path",
+                                         "pipeline path"),
                      "small_attention": ("fused path",),
                      "fused_qkv": ("fused path",)}
     entries = []

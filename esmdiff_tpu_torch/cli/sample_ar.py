@@ -17,9 +17,12 @@ precedence rules are JAX's, plus ``--device`` (default ``cuda``):
     ``task_name``, else "clm" or "jlm" in the ``--ckpt`` path, else clm;
   - the geometry: the training config's, else ``--model_scale tiny``'s
     (JAX's tiny widths), else the ``CLMConfig()``/``JLMConfig()`` defaults;
-  - ``--ckpt``: an HF torch checkpoint (``convert.checkpoints.
-    load_ar_params``, which raises on any parameter it cannot fill, where
-    the JAX package keeps random weights);
+  - ``--ckpt``: one of the port's CLM/JLM training runs (the run, its
+    checkpoint directory or a ``step_N`` directory), loaded strictly into
+    the net ``--config`` builds (raising, with the keys, on any other
+    shape), or an HF torch checkpoint; both through
+    ``convert.checkpoints.load_ar_params``, which raises on any parameter
+    it cannot fill, where the JAX package keeps random weights;
   - ``--quant int8``: the block projections in W8A8 int8 (ops/quant.py);
   - ``--runtime_ckpt``: a training run of the port providing the trunk,
     paired with a trained VQ-VAE by ``--vqvae_ckpt`` (which without
@@ -77,7 +80,9 @@ def get_argparser():
                    help="Inferred from --config or the --ckpt path if "
                         "omitted.")
     p.add_argument("--ckpt", type=str, default=None,
-                   help="HF torch checkpoint of the CLM/JLM (.pt/.ckpt).")
+                   help="A CLM/JLM training run of the port (run, ckpt or "
+                        "step dir; pass its --config) or an HF torch "
+                        "checkpoint (.pt/.ckpt).")
     p.add_argument("--config", type=str, default=None,
                    help="Training experiment yaml (configs/clm.yaml etc.) "
                         "to rebuild the net's geometry, or a predict yaml "

@@ -33,7 +33,10 @@ weights from seed 0, as in JAX.
 (``encoder_cfg``, ``decoder_cfg``) beside ``params.pt`` (the port's
 ``utils/checkpoint.py``) in place of orbax's ``params/``.
 
-``load_ar_params`` fills a CLM or JLM from an HF torch checkpoint
+``load_ar_params`` fills a CLM or JLM from one of the port's own CLM/JLM
+training runs (the run, its checkpoint directory or a ``step_N``
+directory: ``params.pt`` holds the net's state dict, loaded strictly; the
+optimizer state is ignored), or from an HF torch checkpoint
 (``convert/ar_rules.py``), strictly: unlike the JAX package's, which
 converts with the CLM rules for 12 layers unless told otherwise and keeps
 the random value of every leaf it cannot fill, it takes the rules and the
@@ -120,10 +123,13 @@ def file_configs(state_dict) -> dict:
 
 
 def _run_step_dir(path: str | Path) -> tuple[Path, Path]:
-    """(step directory, run directory) of a checkpoint path: a checkpoint
-    directory (its ``index.json``'s best entry) or a ``step_N`` directory
-    holding ``params.pt``."""
+    """(step directory, run directory) of a checkpoint path: a run
+    directory or its checkpoint directory (``index.json``'s best entry),
+    or a ``step_N`` directory holding ``params.pt``."""
     path = Path(path)
+    if not (path / "index.json").exists() and \
+            (path / "ckpt" / "index.json").exists():
+        path = path / "ckpt"           # a run directory
     if (path / "index.json").exists():
         index = json.loads((path / "index.json").read_text())
         if not index:
@@ -343,15 +349,44 @@ def convert_ar(model: CLM | JLM, state_dict: Mapping) -> CLM | JLM:
     return model
 
 
+def load_state_dict_strict(model: torch.nn.Module, state_dict: Mapping,
+                          where) -> None:
+    """``model.load_state_dict(state_dict)`` after checking that the keys
+    and shapes are the model's; raises ValueError naming the keys that are
+    missing, unexpected or of another shape."""
+    own = model.state_dict()
+    missing = sorted(k for k in own if k not in state_dict)
+    extra = sorted(k for k in state_dict if k not in own)
+    shapes = sorted(f"{k} {tuple(state_dict[k].shape)} vs "
+                    f"{tuple(own[k].shape)}" for k in own
+                    if k in state_dict
+                    and state_dict[k].shape != own[k].shape)
+    if missing or extra or shapes:
+        raise ValueError(
+            f"{where} does not fit the {type(model).__name__} the config "
+            f"builds: {len(missing)} missing {missing[:8]}, {len(extra)} "
+            f"unexpected {extra[:8]}, {len(shapes)} of another shape "
+            f"{shapes[:8]}")
+    model.load_state_dict(state_dict, strict=True)
+
+
 def load_ar_params(ckpt_path: str | Path, model: CLM | JLM) -> CLM | JLM:
-    """Fill ``model`` from an HF torch checkpoint (``.pt``/``.ckpt``: a
-    bare state dict, DeepSpeed's ``module`` or Lightning's
-    ``state_dict``, ``net.``-prefixed keys unwrapped) through
-    ``convert_ar``."""
+    """Fill ``model`` from one of the port's CLM/JLM runs (a run, checkpoint
+    or ``step_N`` directory; its ``params.pt``, strictly), or from an HF
+    torch checkpoint (``.pt``/``.ckpt``: a bare state dict, DeepSpeed's
+    ``module`` or Lightning's ``state_dict``, ``net.``-prefixed keys
+    unwrapped) through ``convert_ar``."""
     path = Path(ckpt_path)
     if path.is_dir():
-        _not_ported(f"loading {path}: an orbax AR checkpoint of the JAX "
-                    "package")
+        if not any((d / f).exists() for d in (path, path / "ckpt")
+                   for f in ("index.json", PARAMS)):
+            _not_ported(f"loading {path}: an orbax AR checkpoint of the JAX "
+                        "package")
+        step_dir, _ = _run_step_dir(path)
+        load_state_dict_strict(model, load_params(step_dir), step_dir)
+        print(f"[load_ar_params] {type(model).__name__} from the port's run "
+              f"{step_dir} ({len(model.state_dict())} tensors)")
+        return model
     convert_ar(model, unwrap_net(load_torch_state_dict(str(path))))
     print(f"[load_ar_params] converted {type(model).__name__} from {path} "
           f"({len(model.state_dict())} tensors)")

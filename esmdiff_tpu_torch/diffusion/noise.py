@@ -4,7 +4,9 @@ Port of the five schedules of ``esmdiff_tpu/diffusion/noise.py``
 (LogLinear — the MDLM default and the one the sampler uses — Cosine,
 CosineSqr, Linear, Geometric), as stateless functions of a float32 tensor,
 with ``sigma_min``/``sigma_max`` and the importance-sampling transforms of
-LogLinear and Linear that the training loss uses.
+LogLinear and Linear that the training loss uses; and the BERT-style MLM
+corruption (``sample_mask_rate``, ``get_inputs_for_mlm``), whose draws come
+from an explicit generator (``MlmDraws``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ import dataclasses
 import math
 
 import torch
+
+from esmdiff_tpu_torch.core.constants import (STRUCTURE_MASK_TOKEN,
+                                            VQVAE_CODEBOOK_SIZE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,3 +133,68 @@ NOISE_REGISTRY = {
 
 def get_noise(name: str, **kwargs) -> Noise:
     return NOISE_REGISTRY[name](**kwargs)
+
+
+# ---------------------------------------------------------------------------
+# BERT-style MLM corruption (reference get_inputs_for_mlm, noise_utils.py:38-63)
+# ---------------------------------------------------------------------------
+
+class MlmDraws:
+    """Draw source of ``sample_mask_rate`` and ``get_inputs_for_mlm``: one
+    explicit ``torch.Generator`` on ``device``, each call the next values.
+    A test injects another source with the same methods (JAX's draws)."""
+
+    def __init__(self, device, seed: int = 0):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+
+    def uniform(self, shape=()):
+        return torch.rand(tuple(shape), generator=self.generator,
+                          device=self.device, dtype=torch.float32)
+
+    def beta(self, a: int, b: int):
+        """A Beta(a, b) scalar for integer a, b: the a-th smallest of
+        a + b - 1 uniforms."""
+        if int(a) != a or int(b) != b or a < 1 or b < 1:
+            raise ValueError(f"Beta({a}, {b}): integer parameters >= 1 only")
+        u = self.uniform((int(a) + int(b) - 1,))
+        return torch.sort(u).values[int(a) - 1]
+
+    def codes(self, shape):
+        """Uniform structure codes in [0, VQVAE_CODEBOOK_SIZE)."""
+        return torch.randint(0, VQVAE_CODEBOOK_SIZE, tuple(shape),
+                             generator=self.generator, device=self.device)
+
+
+def sample_mask_rate(draws, schedule: str = "beta"):
+    """Scalar mask-rate sampler matching the reference schedules."""
+    if schedule == "beta":
+        return draws.beta(3, 9) * 0.80 + draws.uniform() * 0.20
+    if schedule == "linear":
+        return draws.uniform()
+    if schedule == "cosine":
+        return torch.cos(draws.uniform() * math.pi * 0.5)
+    if schedule == "constant":
+        return torch.tensor(0.15, dtype=torch.float32)
+    raise ValueError(f"Unknown mask-rate schedule: {schedule}")
+
+
+def get_inputs_for_mlm(draws, inputs, mask_rate):
+    """80/10/10 BERT corruption over structure tokens; specials shielded.
+
+    Returns (corrupted_inputs, labels (-100 on uncounted), masked_indices).
+    """
+    special = inputs >= VQVAE_CODEBOOK_SIZE
+    rate = torch.as_tensor(mask_rate, dtype=torch.float32,
+                           device=inputs.device)
+    prob = torch.where(special, torch.zeros_like(rate), rate)
+    masked = draws.uniform(inputs.shape).to(inputs.device) < prob
+    labels = torch.where(masked, inputs, -100)
+    replaced = (draws.uniform(inputs.shape).to(inputs.device) < 0.8) & masked
+    out = torch.where(replaced, STRUCTURE_MASK_TOKEN, inputs)
+    randomized = ((draws.uniform(inputs.shape).to(inputs.device) < 0.5)
+                  & masked & ~replaced)
+    rand_tokens = draws.codes(inputs.shape).to(inputs.device, inputs.dtype)
+    out = torch.where(randomized, rand_tokens, out)
+    return out, labels, masked

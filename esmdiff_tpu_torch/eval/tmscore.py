@@ -3,12 +3,15 @@
 best-of-ensemble TM and RMSD, and pairwise TM diversity.
 
 The search (fragment-seeded iterative Kabsch) is scalar host work, C++ in
-both packages: ``native/tmscore/tmscore.cpp`` built by ``utils/native.py``
-with the JAX build's flags, so one machine gives both packages the same
-scores bit for bit.  ``_tm_score_np`` is its plain numpy version, held
-against the library by the tests; nothing falls back to it.  The JAX
-package's numpy version fits by SVD where the library iterates a
-quaternion (``_kabsch_np``), so the two part on poorly superposable pairs.
+both packages.  The port builds its own copy of the source
+(``csrc/host/tmscore.cpp``, by ``utils/native.py`` with the JAX build's
+flags), whose superposition is repaired: the shared library's power
+iteration stops short of the optimal rotation on poorly superposable
+pairs (far from native); the copy finishes those by Jacobi sweeps.  So
+the port's scores equal the optimal (SVD) fit's, and the JAX library's
+bit for bit wherever its iteration converges (near-native pairs).
+``_tm_score_np`` is the library's plain numpy version, held against it by
+the tests; nothing falls back to it.
 """
 
 from __future__ import annotations
@@ -46,14 +49,46 @@ def _d0(n: int) -> float:
     return max(1.24 * (n - 15.0) ** (1.0 / 3.0) - 1.8, 0.5) if n > 21 else 0.5
 
 
+def _jacobi_top_eigenvector(S):
+    """The eigenvector of the largest eigenvalue of the symmetric 4 x 4
+    ``S`` by cyclic Jacobi sweeps, as the library's
+    ``jacobi_top_eigenvector``."""
+    A = [list(row) for row in S]
+    V = [[1.0 if i == j else 0.0 for j in range(4)] for i in range(4)]
+    fro = math.sqrt(sum(x * x for row in S for x in row))
+    for _ in range(64):
+        off = sum(2.0 * A[p][r] * A[p][r]
+                  for p in range(4) for r in range(p + 1, 4))
+        if math.sqrt(off) <= 1e-14 * fro:
+            break
+        for p in range(4):
+            for r in range(p + 1, 4):
+                if A[p][r] == 0.0:
+                    continue
+                theta = (A[r][r] - A[p][p]) / (2.0 * A[p][r])
+                t = (1.0 if theta >= 0.0 else -1.0) / (
+                    abs(theta) + math.sqrt(theta * theta + 1.0))
+                c = 1.0 / math.sqrt(t * t + 1.0)
+                s = t * c
+                for M, rows in ((A, False), (A, True), (V, False)):
+                    for k in range(4):
+                        if rows:
+                            x, y = M[p][k], M[r][k]
+                            M[p][k], M[r][k] = c * x - s * y, s * x + c * y
+                        else:
+                            x, y = M[k][p], M[k][r]
+                            M[k][p], M[k][r] = c * x - s * y, s * x + c * y
+    top = max(range(4), key=lambda i: (A[i][i], -i))
+    return [V[i][top] for i in range(4)]
+
+
 def _kabsch_np(a, b):
-    """Rotation and translation fitting a onto b as tmscore.cpp's
+    """Rotation and translation fitting a onto b as the library's
     ``kabsch`` finds them: Horn's quaternion, the top eigenvector of the
     4 x 4 key matrix by power iteration shifted by its largest absolute row
-    sum, from q = (1, .02, .03, .04), at most 200 steps, stopping once a
-    step moves q by less than 1e-14 (L1).  On a poorly superposable pair
-    the iteration stops short of the optimal rotation (an SVD's), and this
-    stops where the library does."""
+    sum, from q = (1, .02, .03, .04), stopping once a step moves q by less
+    than 1e-14 (L1); where 200 steps do not get there (poorly superposable
+    pairs), the eigenvector of Jacobi sweeps instead."""
     ca, cb = a.mean(0), b.mean(0)
     (h00, h01, h02), (h10, h11, h12), (h20, h21, h22) = (
         (a - ca).T @ (b - cb)).tolist()
@@ -74,6 +109,8 @@ def _kabsch_np(a, b):
         q = nq
         if diff < 1e-14:
             break
+    else:
+        q = _jacobi_top_eigenvector(S)
     q0, q1, q2, q3 = q
     R = np.array([
         [q0 * q0 + q1 * q1 - q2 * q2 - q3 * q3, 2 * (q1 * q2 - q0 * q3),
@@ -86,8 +123,8 @@ def _kabsch_np(a, b):
 
 
 def _tm_score_np(xa, xb):
-    """Plain numpy version of native/tmscore/tmscore.cpp, step for step
-    (its superpositions by ``_kabsch_np``)."""
+    """Plain numpy version of csrc/host/tmscore.cpp, step for step (its
+    superpositions by ``_kabsch_np``)."""
     n = len(xa)
     d0 = _d0(n)
     d0_search = min(max(d0, 4.5), 8.0)

@@ -8,16 +8,25 @@ swappable output heads.  The layers are a plain ``ModuleList``
 ``convert`` unstacks them.  With ``remat`` (the default, as in JAX) the
 blocks JAX scans are rematerialised in the backward while autograd records
 (``torch.utils.checkpoint``, non-reentrant); block 0, with geometric
-attention, is not, as in JAX.
+attention, is not, as in JAX.  ``remat_policy`` "nothing" recomputes the
+whole block; "dots" (JAX's ``dots_saveable``) keeps the outputs of the
+products (``mm``, ``addmm``, ``bmm``, ``_int_mm``) and recomputes the rest,
+through a selective-checkpoint policy.  The attention kernel is no product
+in JAX (a Pallas call) and none here (a ctypes launch inside an
+``autograd.Function``, which the policy never sees as an op): it is
+recomputed under both policies, so the flash launches of a train step are
+the same.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from esmdiff_tpu_torch.core import constants as C
 from esmdiff_tpu_torch.device import torch_dtype
@@ -48,8 +57,7 @@ class ESM3Config:
     n_sequence_heads: int = 0
     dtype: str = "bfloat16"
     # recompute blocks n_layers_geom.. in the backward (training only);
-    # "nothing" = the whole block.  JAX's "dots" (keep the products) is not
-    # ported and raises.
+    # "nothing" = the whole block, "dots" = keep the products' outputs
     remat: bool = True
     remat_policy: str = "nothing"
     # "auto"/"flash" = flash kernel, "small" = rotary fused into the
@@ -118,13 +126,35 @@ class TransformerBlock(nn.Module):
         return x + self.ffn(x) / self.scale
 
 
+# the products whose outputs "dots" keeps (jax.checkpoint_policies.
+# dots_saveable: every dot_general)
+SAVED_PRODUCTS = frozenset(
+    getattr(torch.ops.aten, name).default
+    for name in ("mm", "addmm", "bmm", "_int_mm"))
+REMAT_POLICIES = ("nothing", "dots")
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_kwargs(policy: str) -> dict:
+    """``torch.utils.checkpoint`` arguments of a ``remat_policy``."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {policy!r}")
+    kw = dict(use_reentrant=False)
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)
+    return kw
+
+
 class TransformerStack(nn.Module):
     def __init__(self, cfg: ESM3Config):
         super().__init__()
-        if cfg.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not ported yet (the "
-                "port recomputes whole blocks: 'nothing')")
+        self.remat_kwargs = remat_kwargs(cfg.remat_policy)
         self.cfg = cfg
         self.blocks = nn.ModuleList(
             TransformerBlock(cfg, use_geom_attn=i < cfg.n_layers_geom)
@@ -158,7 +188,7 @@ class TransformerStack(nn.Module):
         for i, block in enumerate(self.blocks):
             if remat and i >= cfg.n_layers_geom:
                 x = checkpoint(block, x, rot_cos, rot_sin, mask=mask,
-                               lengths=lengths, use_reentrant=False)
+                               lengths=lengths, **self.remat_kwargs)
                 continue
             x = block(x, rot_cos, rot_sin, mask=mask, lengths=lengths,
                       affine=affine, affine_mask=affine_mask,

@@ -68,7 +68,8 @@ class Embed(nn.Module):
 
 class LayerNorm(nn.Module):
     """LayerNorm with float32 statistics (population variance, eps 1e-5), a
-    scale and an optional bias; returns the input's dtype.  With
+    scale and an optional bias (float32 at use, as flax promotes bfloat16
+    parameters); returns the input's dtype.  With
     ``use_scale=False`` it owns no scale (the int8 path, where gamma is
     folded into the next projection's weights)."""
 
@@ -79,8 +80,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(dim)) if use_bias else None
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias,
-                         eps=1e-5)
+        scale, bias = (None if t is None else t.float()
+                       for t in (self.scale, self.bias))
+        y = F.layer_norm(x.float(), (x.shape[-1],), scale, bias, eps=1e-5)
         return y.to(x.dtype)
 
 

@@ -4,9 +4,9 @@ The port's own copy of ``esmdiff_tpu/train/config.py`` (the port imports
 nothing of the JAX package): the same dataclasses, fields and defaults, so
 a ``config.yaml`` written beside a run by either package loads in the
 other.  ``load_config`` composes defaults <- experiment yaml <- dotted CLI
-overrides.  The ``clm``/``jlm`` sub-configs are kept as data (their
-trainers are not ported), so ``configs/clm.yaml`` and ``configs/jlm.yaml``
-still load.
+overrides.  One field is the port's own: ``model.remat_policy`` (JAX sets
+it on the trunk's config only); ``save_config`` leaves it out at its
+default, so such a run's ``config.yaml`` still loads in the JAX package.
 """
 
 from __future__ import annotations
@@ -62,12 +62,15 @@ class ModelConfig:
     n_structure_heads: int = 4101
     n_sequence_heads: int = 0
     dtype: str = "bfloat16"
-    # float32 = reference parity (fp32 master weights, bf16 compute); the
-    # port's trainer takes float32 only and raises on other values
+    # float32 = reference parity (fp32 master weights, bf16 compute);
+    # bfloat16 = bf16 trunk, sigma embedder and heads, with bf16 gradients
+    # and AdamW moments (the MDLM task; the AR nets keep float32, as in JAX)
     param_dtype: str = "float32"
     # rematerialise blocks n_layers_geom.. in the backward
-    # (torch.utils.checkpoint)
+    # (torch.utils.checkpoint); remat_policy "nothing" recomputes whole
+    # blocks, "dots" keeps the products' outputs (JAX's dots_saveable)
     remat: bool = True
+    remat_policy: str = "nothing"
     # mdlm flags (configs/experiment/mdlm.yaml:30-52)
     noise: str = "loglinear"
     time_conditioning: bool = True
@@ -113,9 +116,10 @@ class TrainerConfig:
     # >0 = capture a torch.profiler trace of that many train steps to
     # <ckpt_dir>/profile (a Chrome trace)
     profile_steps: int = 0
-    multihost: bool = False       # multi-host launch (not ported yet)
+    multihost: bool = False       # multi-host launch (raises: one device)
     # sharding strategy (reference configs/trainer/: ddp.yaml = ddp,
-    # deepspeed.yaml stage 2 = zero2; fsdp, dpNxtpM, ppS: not ported yet).
+    # deepspeed.yaml stage 2 = zero2; fsdp, dpNxtpM, ppS raise: the port
+    # trains on one device).
     # On one device ddp and zero2 are the plain step.
     strategy: str = "zero2"
     # GPipe microbatch count for the pp strategies (0 = auto: smallest
@@ -234,6 +238,15 @@ def load_config(yaml_path: Optional[str] = None,
     return cfg
 
 
+# the port's own fields: (section, name) -> default, left out of a saved
+# config.yaml at that default
+PORT_ONLY = {("model", "remat_policy"): "nothing"}
+
+
 def save_config(cfg: TrainConfig, path: str | Path):
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Path(path).write_text(yaml.safe_dump(dataclasses.asdict(cfg)))
+    tree = dataclasses.asdict(cfg)
+    for (section, name), default in PORT_ONLY.items():
+        if tree[section][name] == default:
+            del tree[section][name]
+    Path(path).write_text(yaml.safe_dump(tree))

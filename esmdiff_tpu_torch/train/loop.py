@@ -1,19 +1,22 @@
-"""MDLM fine-tuning loop on the port.
+"""Training loop on the port: the MDLM, CLM and JLM tasks.
 
-Port of ``esmdiff_tpu/train/loop.py``: build the model from the config,
-train epochs with validation every ``val_every_n_epochs``, keep the best
-checkpoints by validation loss (``utils/checkpoint.py``), stop early, log
-metrics to CSV, resume, and the debug modes (``fast_dev_run``,
-``overfit_batches``, ``limit_batches``, ``check_nans``, ``profile_steps``).
-The run's composed ``config.yaml`` is written beside it, from which
-``convert/checkpoints.py`` rebuilds the model.
+Port of ``esmdiff_tpu/train/loop.py``: build the task's model from the
+config (``build_task``: the MDLM of the fine-tune, or the CLM/JLM heads on
+the dump's per-residue ESM3 embeddings), train epochs with validation
+every ``val_every_n_epochs``, keep the best checkpoints by validation loss
+(``utils/checkpoint.py``), stop early, log metrics to CSV, resume, and the
+debug modes (``fast_dev_run``, ``overfit_batches``, ``limit_batches``,
+``check_nans``, ``profile_steps``).  The run's composed ``config.yaml`` is
+written beside it, from which ``convert/checkpoints.py`` rebuilds the
+model; a CLM/JLM run's ``params.pt`` holds the net's own state dict
+(``load_ar_params`` loads it).
 
-One device (the card unless the caller asks for the CPU).  ``build_clm``
-and ``build_jlm`` build the AR nets of a config (the sampling CLI's
-``--config``).  ``model.pretrained_ckpt`` fills the trunk from a
-reference PyTorch file after the seeded init (``init_params``).  Not
-ported yet, and raising: training the CLM/JLM tasks, multi-device
-strategies and multihost, and ``model.param_dtype`` other than float32.
+One device (the card unless the caller asks for the CPU).
+``model.pretrained_ckpt`` fills the trunk from a reference PyTorch file
+after the seeded init (``init_params``); ``model.param_dtype=bfloat16``
+holds the MDLM's parameters, gradients and AdamW moments in bfloat16;
+``model.remat_policy`` picks what the trunk's remat keeps.  Raising:
+multi-device strategies and multihost.
 """
 
 from __future__ import annotations
@@ -30,14 +33,16 @@ from torch import nn
 
 from esmdiff_tpu_torch.convert import torch_ckpt
 from esmdiff_tpu_torch.core import constants as C
-from esmdiff_tpu_torch.device import resolve_device
+from esmdiff_tpu_torch.device import resolve_device, torch_dtype
 from esmdiff_tpu_torch.diffusion.mdlm import MDLM, GeneratorDraws, MDLMConfig
 from esmdiff_tpu_torch.diffusion.noise import get_noise
+from esmdiff_tpu_torch.models import clm as clm_mod
+from esmdiff_tpu_torch.models import jlm as jlm_mod
 from esmdiff_tpu_torch.models.clm import CLM, CLMConfig
 from esmdiff_tpu_torch.models.esm3 import ESM3, ESM3Config, esm3_tiny
 from esmdiff_tpu_torch.models.jlm import JLM, JLMConfig
-from esmdiff_tpu_torch.nn.layers import TimestepEmbedder, init_params as \
-    init_module_params
+from esmdiff_tpu_torch.nn.layers import LayerNorm, TimestepEmbedder
+from esmdiff_tpu_torch.nn.layers import init_params as init_module_params
 from esmdiff_tpu_torch.utils.checkpoint import CheckpointManager
 from esmdiff_tpu_torch.utils.logging import MetricLogger, make_sink
 
@@ -54,12 +59,11 @@ def trunk_config(cfg: TrainConfig) -> ESM3Config:
     """The trunk geometry of ``model.size`` (tiny | custom | full), with the
     structure head, as the JAX trainer builds it."""
     m = cfg.model
-    if m.param_dtype != "float32":
-        _not_ported(f"model.param_dtype={m.param_dtype!r} (float32 master "
-                    "weights only)")
+    torch_dtype(m.param_dtype)  # float32 | bfloat16, else KeyError
     kw = dict(dtype=m.dtype, head_type="structure",
               n_structure_heads=m.n_structure_heads,
-              n_sequence_heads=m.n_sequence_heads, remat=m.remat)
+              n_sequence_heads=m.n_sequence_heads, remat=m.remat,
+              remat_policy=m.remat_policy)
     if m.size == "tiny":
         return esm3_tiny(**kw)
     if m.size == "custom":
@@ -74,7 +78,8 @@ def trunk_config(cfg: TrainConfig) -> ESM3Config:
 
 def build_mdlm(cfg: TrainConfig, device=None) -> MDLM:
     """The MDLM (trunk, sigma embedder, noise, config) with uninitialised
-    float32 parameters on ``device`` (see ``init_params``)."""
+    float32 parameters on ``device`` (see ``init_params``; ``train`` casts
+    them to ``model.param_dtype``)."""
     m = cfg.model
     trunk_cfg = trunk_config(cfg)
     with torch.device(resolve_device(device)):
@@ -163,25 +168,100 @@ def load_pretrained(mdlm: MDLM, path: str) -> dict:
     return report
 
 
-def build_task(cfg: TrainConfig, device=None):
-    """task_name -> (mdlm, loss_fn(batch, draws, training=True)).  The
-    batch is a dict of device tensors; a packed batch (``data.pack_len``
-    > 0) carries ``segment_ids`` and takes ``MDLM.loss_packed``."""
-    if cfg.task_name in ("clm", "jlm"):
-        _not_ported(f"task_name={cfg.task_name!r} (the AR heads)")
-    if cfg.task_name != "mdlm":
-        raise ValueError(f"unknown task_name: {cfg.task_name!r} "
-                         "(mdlm | clm | jlm)")
-    mdlm = build_mdlm(cfg, device)
-    S = data_mod.resolve_pack_segments(cfg.data)
+def _clm_loss(model: CLM):
+    """CLM objective: next-structure-token CE given the per-residue ESM3
+    embeddings (reference model.py:289-313); labels -100 where
+    mask <= 0.5."""
 
-    def mdlm_loss(batch, draws, training=True):
-        if "segment_ids" in batch:
-            return mdlm.loss_packed(batch, draws, max_segments=S,
-                                    training=training)
-        return mdlm.loss(batch, draws, training=training)
+    def loss_fn(batch, draws=None, training=True):
+        mask = batch["mask"]
+        labels = torch.where(mask > 0.5, batch["structure_tokens"], -100)
+        out = model(inputs_embeds=batch["embeddings"], labels=labels,
+                    attention_mask=mask)
+        return out["loss"], {"nll": out["loss"]}
 
-    return mdlm, mdlm_loss
+    return loss_fn
+
+
+def _jlm_loss(model: JLM):
+    """JLM objective: shift-by-one CE over both segments of the joint
+    (sequence, structure) stream (reference model.py:247-287)."""
+
+    def loss_fn(batch, draws=None, training=True):
+        mask = batch["mask"]
+        seq_labels = torch.where(mask > 0.5, batch["sequence_tokens"], -100)
+        str_labels = torch.where(mask > 0.5, batch["structure_tokens"], -100)
+        out = model(sequence_embeddings=batch["embeddings"],
+                    structure_tokens=batch["structure_tokens"],
+                    labels=torch.cat([seq_labels, str_labels], dim=1),
+                    mask=mask)
+        return out["loss"], {"seq_nll": out["sequence_nll"],
+                             "str_nll": out["structure_nll"],
+                             "seq_acc": out["sequence_acc"],
+                             "str_acc": out["structure_acc"]}
+
+    return loss_fn
+
+
+def build_task(cfg: TrainConfig, device=None,
+               emb_dim: Optional[int] = None):
+    """task_name -> (model, loss_fn(batch, draws, training=True)).
+
+    The model is the MDLM (``mdlm``), or the CLM/JLM net fed embeddings of
+    width ``emb_dim`` (default ESM3's), with uninitialised float32
+    parameters (``init_task``).  The batch is a dict of device tensors; a
+    packed MDLM batch (``data.pack_len`` > 0) carries ``segment_ids`` and
+    takes ``MDLM.loss_packed``.  The AR losses draw nothing."""
+    task = cfg.task_name
+    D = emb_dim if emb_dim is not None else C.ESM3_D_MODEL
+    if task == "mdlm":
+        mdlm = build_mdlm(cfg, device)
+        S = data_mod.resolve_pack_segments(cfg.data)
+
+        def mdlm_loss(batch, draws, training=True):
+            if "segment_ids" in batch:
+                return mdlm.loss_packed(batch, draws, max_segments=S,
+                                        training=training)
+            return mdlm.loss(batch, draws, training=training)
+
+        return mdlm, mdlm_loss
+    if task == "clm":
+        model = build_clm(cfg, device, cond_dim=D)
+        return model, _clm_loss(model)
+    if task == "jlm":
+        model = build_jlm(cfg, device, cond_dim=D)
+        return model, _jlm_loss(model)
+    raise ValueError(f"unknown task_name: {task!r} (mdlm | clm | jlm)")
+
+
+def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Hold ``module``'s parameters in ``dtype``, but the LayerNorms',
+    which stay float32 (flax's LayerNorm takes no ``param_dtype``)."""
+    for m in module.modules():
+        if isinstance(m, LayerNorm):
+            continue
+        for p in m.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+    return module
+
+
+def task_modules(model) -> nn.Module:
+    """The trainable modules of ``build_task``'s model: ``mdlm_modules``
+    of an MDLM, the AR net itself."""
+    return mdlm_modules(model) if isinstance(model, MDLM) else model
+
+
+def init_task(model, cfg: TrainConfig) -> None:
+    """Random weights from ``cfg.seed`` (``init_params`` for the MDLM, the
+    AR nets' own initialisers), then the MDLM's ``model.param_dtype``."""
+    if isinstance(model, MDLM):
+        init_params(model, cfg)
+        cast_params(mdlm_modules(model), torch_dtype(cfg.model.param_dtype))
+        return
+    dev = next(model.parameters()).device
+    init = (clm_mod.init_params if isinstance(model, CLM)
+            else jlm_mod.init_params)
+    init(model, torch.Generator(device=dev).manual_seed(int(cfg.seed)))
 
 
 def to_device(batch: dict, device) -> dict:
@@ -205,6 +285,12 @@ def train(cfg: TrainConfig, device=None) -> dict:
     if cfg.trainer.multihost:
         _not_ported("trainer.multihost")
     tstate.check_strategy(cfg.trainer.strategy)
+    if cfg.task_name in ("clm", "jlm"):
+        # the AR heads consume the dump's per-residue ESM3 embeddings
+        cfg.data.with_embeddings = True
+        if cfg.data.pack_len > 0:
+            raise ValueError("data.pack_len (sequence-packed training) is "
+                             "MDLM-only; the AR heads use bucketed padding")
 
     dataset = data_mod.EncodingDataset(cfg.data, training=True)
     train_split, val_split = data_mod.train_val_split(dataset, cfg.data)
@@ -215,9 +301,18 @@ def train(cfg: TrainConfig, device=None) -> dict:
               "checkpoint selection has no signal (corpus too small for "
               "the 0.95/0.05 split)")
 
-    mdlm, loss_fn = build_task(cfg, dev)
-    init_params(mdlm, cfg)
-    model = mdlm_modules(mdlm)
+    emb_dim = None
+    if cfg.data.with_embeddings:
+        probe = dataset.load(0, np.random.RandomState(0))
+        if "embeddings" not in probe:
+            raise ValueError(
+                f"task {cfg.task_name!r} needs embeddings in the encoding "
+                f"dump — regenerate with cli/dump.py --with_embeddings")
+        emb_dim = int(probe["embeddings"].shape[-1])
+
+    task_model, loss_fn = build_task(cfg, dev, emb_dim=emb_dim)
+    init_task(task_model, cfg)
+    model = task_modules(task_model)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[model] task={cfg.task_name} {n_params/1e6:.1f}M params on {dev}")
     optimizer = tstate.make_optimizer(

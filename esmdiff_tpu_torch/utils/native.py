@@ -1,12 +1,11 @@
-"""Builds and loads the repo's host C++ libraries: the TM-score search
-(``native/tmscore/tmscore.cpp``) and the PDB parser
-(``native/pdbio/pdbio.cpp``).
+"""Builds and loads the port's host C++ libraries: the TM-score search (the
+port's own copy, ``esmdiff_tpu_torch/csrc/host/tmscore.cpp``, whose
+superposition is repaired) and the PDB parser (``native/pdbio/pdbio.cpp``).
 
 ``native/`` lies outside the JAX package (``esmdiff_tpu/``): compiling its
 sources with ``g++`` imports nothing of that package.  Each source is
-compiled at first use with the flags of its ``native/*/Makefile``
-(``-O3 -fPIC -std=c++17 -march=native -shared``), so that one machine gives
-the same TM-scores bit for bit from either package, into the port's own
+compiled at first use with the flags of the ``native/*/Makefile``s
+(``-O3 -fPIC -std=c++17 -march=native -shared``) into the port's own
 ``build/torch_ext/`` (git-ignored; ``native/*/build/`` is never written).
 The library's name carries a hash of the source, the flags and the host:
 ``-march=native`` ties a library to its CPU, so one built on another
@@ -28,6 +27,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 NATIVE = ROOT / "native"
+# sources the port keeps its own copy of: name -> path
+PORT_SOURCES = {"tmscore": ROOT / "esmdiff_tpu_torch" / "csrc" / "host"
+                / "tmscore.cpp"}
 BUILD_DIR = ROOT / "build" / "torch_ext"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-march=native", "-shared"]
 
@@ -49,9 +51,15 @@ def _host() -> str:
     return f"{platform.machine()} {model}"
 
 
+def source(name: str) -> Path:
+    """The C++ source of library ``name``: the port's own copy, else
+    ``native/<name>/<name>.cpp``."""
+    return PORT_SOURCES.get(name) or NATIVE / name / f"{name}.cpp"
+
+
 def library_path(name: str) -> Path:
-    """``build/torch_ext/lib<name>_<hash>.so`` for ``native/<name>/<name>.cpp``."""
-    src = NATIVE / name / f"{name}.cpp"
+    """``build/torch_ext/lib<name>_<hash>.so`` for ``source(name)``."""
+    src = source(name)
     digest = hashlib.sha1(" ".join([*CXX_FLAGS, _host()]).encode())
     digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
@@ -67,17 +75,16 @@ def load(name: str) -> ctypes.CDLL:
         if not so.exists():
             cxx = shutil.which("g++")
             if cxx is None:
-                raise RuntimeError(f"g++ not found: it builds native/{name}")
+                raise RuntimeError(f"g++ not found: it builds {source(name)}")
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             t0 = time.time()
             proc = subprocess.run(
-                [cxx, *CXX_FLAGS, "-o", str(tmp),
-                 str(NATIVE / name / f"{name}.cpp")],
+                [cxx, *CXX_FLAGS, "-o", str(tmp), str(source(name))],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"native/{name}: g++ exit code "
+                raise RuntimeError(f"{source(name)}: g++ exit code "
                                    f"{proc.returncode}:\n{proc.stdout}")
             os.replace(tmp, so)
             build_seconds[name] = time.time() - t0

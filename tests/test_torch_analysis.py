@@ -8,7 +8,11 @@ compute the same function, the JAX suites get their loader's arrays as
 float64 here (the ``jax_float64`` fixture): the same CA values, widened.
 Tolerances as tests/test_torch_eval.py: JS equal after JAX's rounding or
 within 1e-4 on a rounding boundary, validity exact, TM bit-equal, the rest
-1e-9 relative.
+1e-9 relative.  The JAX suites score TM through the port's TM library
+(``tm_library`` fixture): its rotation is repaired where the shared one
+stops short far from native, and tests/test_torch_eval.py holds it
+against the optimal (SVD) fit and against JAX's own library; here the
+suites around it are compared.
 """
 
 import csv
@@ -23,9 +27,11 @@ import torch
 
 from esmdiff_tpu.cli import analyze as janalyze_cli
 from esmdiff_tpu.eval import analysis as janalysis
+from esmdiff_tpu.eval import tmscore as jtmscore
 from esmdiff_tpu_torch.cli import analyze as analyze_cli
 from esmdiff_tpu_torch.core import protein as tprotein
 from esmdiff_tpu_torch.eval import analysis
+from esmdiff_tpu_torch.eval import tmscore
 
 torch.set_num_threads(2)
 
@@ -36,6 +42,12 @@ APO = [TARGETS / "apo" / n for n in ("1a6d.A.pdb", "1ael.A.pdb",
                                      "1akz.A.pdb")]
 PED = sorted((TARGETS / "ped").glob("*.pdb"))[:3]
 CPU = "cpu"
+
+
+@pytest.fixture(autouse=True)
+def tm_library(monkeypatch):
+    """JAX's suites on the port's TM library (the same C entry points)."""
+    monkeypatch.setattr(jtmscore, "_load_library", tmscore._library)
 
 
 @pytest.fixture

@@ -186,6 +186,45 @@ def test_weights_modules_import_without_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_pipeline_modules_import_without_jax():
+    """The data-pipeline and training slice's modules by name, with jax,
+    flax, optax and orbax blocked: the mmCIF parser, the secondary
+    structure, the preprocess and sweep CLIs, the MLM corruption, the AR
+    tasks and the training switches."""
+    probe = ("import sys\n"
+             "for m in ('jax', 'flax', 'optax', 'orbax', "
+             "'orbax.checkpoint'):\n    sys.modules[m] = None\n"
+             "import esmdiff_tpu_torch.core.mmcif"
+             ", esmdiff_tpu_torch.core.secondary_structure"
+             ", esmdiff_tpu_torch.cli.preprocess"
+             ", esmdiff_tpu_torch.cli.sweep\n"
+             "from esmdiff_tpu_torch.diffusion.noise import (MlmDraws, "
+             "get_inputs_for_mlm, sample_mask_rate)\n"
+             "from esmdiff_tpu_torch.train.loop import (build_task, "
+             "cast_params, init_task, task_modules)\n"
+             "from esmdiff_tpu_torch.train.state import AdamW\n"
+             "from esmdiff_tpu_torch.models.esm3 import remat_kwargs\n"
+             "assert not [m for m in sys.modules if m == 'esmdiff_tpu' or "
+             "m.startswith('esmdiff_tpu.')]\n")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+def test_sweep_cli_without_device_raises(no_cuda, tmp_path):
+    """esmdiff-torch-sweep runs its trials on cuda by default: without a
+    card it raises before it writes anything."""
+    from esmdiff_tpu_torch.cli import sweep as sweep_cli
+
+    space = tmp_path / "space.yaml"
+    space.write_text("space:\n  optim.lr: {type: uniform, low: 0.1, "
+                     "high: 0.2}\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sweep_cli.main(["--space", str(space), "--output",
+                        str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
 def test_no_jax_import_lines():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|esmdiff_tpu)\b")
     files = sorted((ROOT / "esmdiff_tpu_torch").rglob("*.py"))
