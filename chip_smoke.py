@@ -205,7 +205,30 @@ Phases, each of which fails loudly (no error is caught):
      2 trials over optim.lr, bf16 parameters, on 32 chains of the dump:
      the promoted trial resumes its own checkpoint, best.json names the
      best; each part's seconds; every directory deleted after;
- 14. print the card, each path's numbers, the kernels line, and as the
+ 14. the parallel path, last (``parallel_path``): a real NCCL group of
+     one rank on the card (torchrun's variables for rank 0 of 1, a free
+     port), the model at full width (d_model 1536, 24 heads) and depth 4,
+     on 48 seeded chains of 100-500 random tokens: esmdiff-torch-train
+     (3 steps of batch 8, one val batch) with no group, then under ddp,
+     zero2, fsdp and dp1xtp1 (ddp's and zero2's losses and grad norms
+     bit for bit with the run with no group, fsdp's and dp1xtp1's within
+     twice the spread of two plain roundings of the same steps where
+     not: the run with no group under the flash kernel's plain version
+     and under XLA's attention; dp1xtp1 through tp.py's split modules
+     over a model group of one, its collectives counted; flash 7 a step,
+     4 an eval batch); the fsdp run's checkpoint (the
+     one-device layout) through --ckpt for one ddpm request on 1jm4.B
+     (8 samples, 10 steps), then with --data_parallel and --profile (the
+     same PDB, a trace written); one served request with and without
+     --data_parallel (the same tokens); 3 steps of
+     esmdiff-torch-train-vqvae --scale mid on data/targets/ped without
+     --data_parallel (twice) and with it, deterministic algorithms on
+     (the losses bit for bit where the two plain runs are, else within
+     twice their spread); a ring of one rank against
+     the flash kernel (B 4, L 512, bf16); the phase's seconds and flash
+     launches: the path's (the runs under the group or the flag) apart
+     from the comparison runs';
+ 15. print the card, each path's numbers, the kernels line, and as the
      last line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA card or without the
 rest of the repo beside it.
@@ -3844,6 +3867,405 @@ def pipeline_path(torch, ops, card, runtime, train_numbers, train_corpus):
     return numbers, flash
 
 
+# the [parallel path]: full width (d_model 1536, 24 heads) at this depth
+PARALLEL_DEPTH, PARALLEL_WIDTH, PARALLEL_HEADS = 4, 1536, 24
+PARALLEL_VQ_SCALE = "mid"
+PARALLEL_STRATEGIES = ("ddp", "zero2", "fsdp", "dp1xtp1")
+PARALLEL_DIR = ROOT / "output" / "chip_smoke_parallel"
+
+
+def parallel_corpus(work, n=48, seed=0):
+    """``n`` chains of 100 to 500 random residues (sequence and structure
+    tokens, BOS/EOS), as cli.dump writes them: a corpus for the strategies'
+    runs, made in bulk."""
+    import numpy as np
+
+    from esmdiff_tpu_torch.core import constants as C
+
+    rng = np.random.RandomState(seed)
+    work.mkdir(parents=True)
+    for i in range(n):
+        L = int(rng.randint(100, 501))
+        np.savez(work / f"chain{i}.npz",
+                 sequence_tokens=np.concatenate(
+                     [[C.SEQUENCE_BOS_TOKEN], rng.randint(4, 24, L),
+                      [C.SEQUENCE_EOS_TOKEN]]).astype(np.int32),
+                 structure_tokens=np.concatenate(
+                     [[C.STRUCTURE_BOS_TOKEN], rng.randint(0, 4096, L),
+                      [C.STRUCTURE_EOS_TOKEN]]).astype(np.int32))
+    return work
+
+
+def strategy_run(torch, fa, tstate, overrides, run_dir, device):
+    """One ``esmdiff-torch-train`` run: its per-step losses, grad norms and
+    flash launches, the eval batches' launches, the result, the seconds."""
+    from esmdiff_tpu_torch.cli import train as train_cli
+
+    steps, evals = [], []
+    t0 = time.time()
+    with stepped(torch, tstate, "train_step", fa, steps), \
+            stepped(torch, tstate, "eval_step", fa, evals):
+        result = train_cli.main([
+            "--config", str(ROOT / "configs/mdlm.yaml"), "--device", device,
+            *overrides, f"trainer.ckpt_dir={run_dir}",
+            "trainer.print_config=false"])
+    return {"losses": [r["loss"] for r in steps],
+            "grad_norms": [r["grad_norm"] for r in steps],
+            "flash_per_train_step": sorted({r["flash"] for r in steps}),
+            "flash_per_eval_batch": sorted({r["flash"] for r in evals}),
+            "flash": sum(r["flash"] for r in steps + evals),
+            "val_loss": result["best_val_loss"], "steps": result["steps"],
+            "s": time.time() - t0}
+
+
+@contextlib.contextmanager
+def counting(owner, names, counts):
+    """Counts the calls of each of ``owner``'s methods ``names`` into
+    ``counts`` while the block runs; the calls themselves are unchanged."""
+    origs = {n: getattr(owner, n) for n in names}
+
+    def wrap(name, orig):
+        def wrapped(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            return orig(*args, **kwargs)
+        return wrapped
+
+    for n, orig in origs.items():
+        setattr(owner, n, wrap(n, orig))
+    try:
+        yield counts
+    finally:
+        for n, orig in origs.items():
+            setattr(owner, n, orig)
+
+
+def served(torch, server, argv, payload):
+    """``esmdiff-torch-serve`` (its main, on a free port) answering one
+    POST of ``payload``; the server is shut down after it."""
+    held, box = {}, threading.Event()
+    orig = server.serve
+
+    def capture(service, host, port):
+        held["httpd"] = orig(service, host, port)
+        held["service"] = service
+        box.set()
+        return held["httpd"]
+
+    server.serve = capture
+    thread = threading.Thread(target=server.main, args=(argv,), daemon=True)
+    try:
+        thread.start()
+        if not box.wait(600):
+            raise AssertionError(f"server {argv} did not start")
+        status, body = post(
+            f"http://127.0.0.1:{held['httpd'].server_port}/sample", payload)
+    finally:
+        server.serve = orig
+        if "httpd" in held:
+            held["httpd"].shutdown()
+        thread.join(timeout=120)
+    if status != 200 or thread.is_alive():
+        raise AssertionError(f"served {argv}: {status} {body}")
+    return body, held["service"]
+
+
+def parallel_path(torch, ops, card, l128_dir, device="cuda"):
+    """Phase 14 (module docstring).  Returns (numbers, flash launches).
+    ``device="cpu"`` (gloo, the plain versions, smaller widths through the
+    PARALLEL_* constants) rehearses it on a machine without a card."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from esmdiff_tpu_torch.cli import sample as sample_cli
+    from esmdiff_tpu_torch.cli import serve as server
+    from esmdiff_tpu_torch.cli import train_vqvae as vq_cli
+    from esmdiff_tpu_torch.nn import layers as nn_layers
+    from esmdiff_tpu_torch.parallel import mesh as pmesh
+    from esmdiff_tpu_torch.parallel import ring
+    from esmdiff_tpu_torch.parallel import tp as ptp
+    from esmdiff_tpu_torch.train import state as tstate
+    from esmdiff_tpu_torch.utils.checkpoint import load_params
+
+    t_phase = time.time()
+    fa = ops["flash_attention"]
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    corpus = parallel_corpus(PARALLEL_DIR / "corpus")
+    failures = []
+    numbers = {"card": card, "depth": PARALLEL_DEPTH,
+               "d_model": PARALLEL_WIDTH, "n_heads": PARALLEL_HEADS}
+    # flash launches of the path (the runs under the group or a flag) and
+    # of the runs they are compared with
+    flash, flash_plain = 0, 0
+
+    # 1. the strategies' runs against the run with no group: 3 steps of
+    # batch 8 (46 train chains, limit 0.6 of 5 batches) and one val batch
+    overrides = [f"data.path={corpus}", "data.pack_len=0",
+                 "data.batch_size=8", "model.size=custom",
+                 f"model.d_model={PARALLEL_WIDTH}",
+                 f"model.n_heads={PARALLEL_HEADS}",
+                 f"model.n_layers={PARALLEL_DEPTH}", "trainer.max_epochs=1",
+                 "trainer.limit_batches=0.6", "trainer.log_every_n_steps=1"]
+    runs = {"no_group": strategy_run(
+        torch, fa, tstate, overrides, PARALLEL_DIR / "no_group", device)}
+    plain = runs["no_group"]
+    # the gate: the spread of two plain roundings of the same steps, the
+    # run with no group under the flash kernel's plain version and under
+    # XLA's attention (the train path's two, in this phase's setting)
+    orig_attn = nn_layers.dot_product_attention
+    roundings = {}
+    for key, owner, name, value in (
+            ("plain_version", fa, "flash_attention",
+             fa.flash_attention_reference),
+            ("xla", nn_layers, "dot_product_attention",
+             lambda *a, **kw: orig_attn(*a, **{**kw, "backend": "xla"}))):
+        saved = getattr(owner, name)
+        setattr(owner, name, value)
+        try:
+            roundings[key] = strategy_run(torch, fa, tstate, overrides,
+                                          PARALLEL_DIR / key, device)
+        finally:
+            setattr(owner, name, saved)
+
+    def spread(a, b, key):
+        return max(abs(x - y) / abs(y) for x, y in zip(a[key], b[key]))
+
+    gate = {"loss_rel": spread(roundings["plain_version"], roundings["xla"],
+                               "losses"),
+            "grad_norm_rel": spread(roundings["plain_version"],
+                                    roundings["xla"], "grad_norms")}
+    numbers["plain_roundings"] = {**roundings, "spread": gate}
+    if any(r["flash"] for r in roundings.values()):
+        failures.append(f"plain roundings launched flash: {roundings}")
+    with socket.socket() as s:  # a free port for the group's store
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    os.environ.update(env)
+    try:
+        dev = torch.device(device, 0) if device == "cuda" else \
+            torch.device(device)
+        opened = pmesh.init_from_env(dev)
+        numbers["group"] = {"opened": opened, "backend": dist.get_backend(),
+                            "world": dist.get_world_size()}
+        want_backend = "nccl" if device == "cuda" else "gloo"
+        if not opened or numbers["group"]["backend"] != want_backend:
+            raise AssertionError(f"NCCL group of one: {numbers['group']}")
+        for strategy in PARALLEL_STRATEGIES:
+            tp_calls = {}
+            with counting(ptp.TPGroup, ("copy", "reduce", "layer_norm"),
+                          tp_calls):
+                runs[strategy] = strategy_run(
+                    torch, fa, tstate,
+                    [*overrides, f"trainer.strategy={strategy}"],
+                    PARALLEL_DIR / strategy, device)
+            runs[strategy]["tp_calls"] = tp_calls
+        # dp1xtp1 goes through tp.py's split modules (the q/k LayerNorms'
+        # statistics summed over the model group, the row-parallel outputs
+        # reduced), the others do not
+        if not all(runs["dp1xtp1"]["tp_calls"].get(n)
+                   for n in ("copy", "reduce", "layer_norm")) or any(
+                runs[s]["tp_calls"] for s in ("ddp", "zero2", "fsdp")):
+            failures.append("tensor parallel calls: " + json.dumps(
+                {s: runs[s]["tp_calls"] for s in PARALLEL_STRATEGIES}))
+        want = ([2 * PARALLEL_DEPTH - 1], [PARALLEL_DEPTH])
+        for name, r in runs.items():
+            if name == "no_group":
+                flash_plain += r["flash"]
+            else:
+                flash += r["flash"]
+            if (r["flash_per_train_step"], r["flash_per_eval_batch"]) != \
+                    want or r["steps"] != 3:
+                failures.append(f"{name}: {r['steps']} steps, flash "
+                                f"{r['flash_per_train_step']} a step, "
+                                f"{r['flash_per_eval_batch']} an eval "
+                                f"batch (want {want})")
+            exact = (r["losses"], r["grad_norms"]) == (plain["losses"],
+                                                       plain["grad_norms"])
+            r["bit_for_bit"] = exact
+            r["loss_rel"] = max(abs(a - b) / abs(b) for a, b in
+                                zip(r["losses"], plain["losses"]))
+            r["grad_norm_rel"] = max(abs(a - b) / abs(b) for a, b in
+                                     zip(r["grad_norms"],
+                                         plain["grad_norms"]))
+            # one rank leaves ddp's and zero2's arithmetic as it was: bit
+            # for bit; fsdp's copies through its flat buffers and
+            # dp1xtp1's q/k LayerNorms (tp.py's statistics) are held to
+            # twice the spread of the two plain roundings
+            if name in ("ddp", "zero2") and not exact:
+                failures.append(f"{name} at one rank not bit for bit: "
+                                f"{r['losses']} {r['grad_norms']} vs "
+                                f"{plain['losses']} {plain['grad_norms']}")
+            if not exact and not (
+                    r["loss_rel"] <= 2 * gate["loss_rel"]
+                    and r["grad_norm_rel"] <= 2 * gate["grad_norm_rel"]):
+                failures.append(f"{name}: loss {r['loss_rel']} / grad norm "
+                                f"{r['grad_norm_rel']} past twice the "
+                                f"plain roundings' {gate}")
+        numbers["strategies"] = runs
+        print("[parallel train] " + json.dumps(runs), flush=True)
+
+        # 2. the fsdp run's checkpoint: the one-device layout (the run
+        # with no group's keys and shapes), through --ckpt for one ddpm
+        # request, then with --data_parallel and --profile: the same PDB
+        def best(run):
+            return Path(json.loads((PARALLEL_DIR / run / "ckpt" /
+                                    "index.json").read_text())[0]["path"])
+
+        saved, ref = load_params(best("fsdp")), load_params(best("no_group"))
+        same = [k for k in ref if torch.equal(saved[k], ref[k])]
+        numbers["fsdp_ckpt"] = {
+            "keys_equal": saved.keys() == ref.keys(),
+            "shapes_equal": all(saved[k].shape == v.shape
+                                for k, v in ref.items()),
+            "tensors_equal_to_no_group_run": len(same), "tensors": len(ref)}
+        if not (numbers["fsdp_ckpt"]["keys_equal"]
+                and numbers["fsdp_ckpt"]["shapes_equal"]):
+            failures.append(f"fsdp checkpoint layout {numbers['fsdp_ckpt']}")
+        ckpt = PARALLEL_DIR / "fsdp" / "ckpt"
+        args = ["--ckpt", str(ckpt), "--mode", "ddpm", "--input",
+                str(l128_dir), "--num_samples", "8", "--num_steps", "10",
+                "--seed", "0", "--device", device]
+        sampled = {}
+        for key, extra in (("no_flag", []), ("data_parallel", [
+                "--data_parallel", "--profile",
+                str(PARALLEL_DIR / "trace")])):
+            before, t0 = fa.launches, time.time()
+            report = sample_cli.main(
+                [*args, "--output", str(PARALLEL_DIR / key), *extra])[0]
+            pdb = PARALLEL_DIR / key / f"{report['target']}.pdb"
+            sampled[key] = {"s": time.time() - t0, "L": report["L"],
+                            "flash": fa.launches - before,
+                            "pdb": pdb.read_text()}
+            if key == "no_flag":
+                flash_plain += sampled[key]["flash"]
+            else:
+                flash += sampled[key]["flash"]
+            check_pdb(sampled[key]["pdb"], 8, 8 * (report["L"] * 4 - 1),
+                      str(pdb))
+        trace = PARALLEL_DIR / "trace" / "trace.json"
+        numbers["sample"] = {
+            k: {kk: vv for kk, vv in v.items() if kk != "pdb"}
+            for k, v in sampled.items()}
+        numbers["sample"]["pdb_equal"] = (sampled["no_flag"]["pdb"]
+                                          == sampled["data_parallel"]["pdb"])
+        numbers["sample"]["trace_mib"] = (trace.stat().st_size / 2**20
+                                          if trace.exists() else 0.0)
+        if not numbers["sample"]["pdb_equal"] or not trace.exists() or \
+                sampled["no_flag"]["flash"] != \
+                sampled["data_parallel"]["flash"] or \
+                not sampled["no_flag"]["flash"]:
+            failures.append(f"--data_parallel / --profile sampling: "
+                            f"{numbers['sample']}")
+
+        # 3. one served request, with --data_parallel and without: the
+        # same tokens
+        payload = {"sequence": target_sequence(l128_dir), "mode": "ddpm",
+                   "num_samples": 8, "num_steps": 10, "seed": 0,
+                   "format": "tokens"}
+        answers = {}
+        for key, extra in (("no_flag", []),
+                           ("data_parallel", ["--data_parallel"])):
+            before, t0 = fa.launches, time.time()
+            body, service = served(torch, server, [
+                "--ckpt", str(ckpt), "--mode", "ddpm", "--port", "0",
+                "--device", device, *extra], payload)
+            answers[key] = {"tokens": body["tokens"],
+                            "replicas": len(service.sampler.replicas),
+                            "flash": fa.launches - before,
+                            "s": time.time() - t0}
+            if key == "no_flag":
+                flash_plain += answers[key]["flash"]
+            else:
+                flash += answers[key]["flash"]
+            del service
+        numbers["serve"] = {
+            "tokens_equal": answers["no_flag"]["tokens"]
+            == answers["data_parallel"]["tokens"],
+            **{k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+               for k, v in answers.items()}}
+        if not numbers["serve"]["tokens_equal"]:
+            failures.append(f"--data_parallel server: {numbers['serve']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. the tokenizer: 3 steps of esmdiff-torch-train-vqvae --scale
+        # mid (decoder d 768 x 12, flash) without --data_parallel, twice,
+        # and with it, under torch's deterministic algorithms (the
+        # special-row gather's backward accumulates with atomics
+        # otherwise): bit for bit where the two plain runs are, else
+        # within twice their spread
+        vq = {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for key, extra in (("no_flag", []), ("no_flag_again", []),
+                               ("data_parallel", ["--data_parallel"])):
+                steps = []
+                before, t0 = fa.launches, time.time()
+                with calls(torch, tstate, "train_step", fa, steps):
+                    vq_cli.main([
+                        "--input", str(ROOT / "data/targets/ped"),
+                        "--output", str(PARALLEL_DIR / f"vq_{key}"),
+                        "--scale", PARALLEL_VQ_SCALE, "--steps", "3",
+                        "--batch", "8", "--max_len", "256",
+                        "--restart_every", "0", "--device", device, *extra])
+                vq[key] = {"losses": [float(r["result"]["loss"])
+                                      for r in steps],
+                           "flash": fa.launches - before,
+                           "s": time.time() - t0}
+                if key == "data_parallel":
+                    flash += vq[key]["flash"]
+                else:
+                    flash_plain += vq[key]["flash"]
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+        def vq_rel(key):
+            return max(abs(a - b) / abs(b) for a, b in zip(
+                vq[key]["losses"], vq["no_flag"]["losses"]))
+
+        vq_spread = vq_rel("no_flag_again")
+        numbers["vqvae"] = {**vq, "plain_runs_rel": vq_spread,
+                            "data_parallel_rel": vq_rel("data_parallel")}
+        if not numbers["vqvae"]["data_parallel_rel"] <= 2 * vq_spread or \
+                len(vq["no_flag"]["losses"]) != 3 or \
+                not vq["no_flag"]["flash"]:
+            failures.append(f"vqvae --data_parallel: {numbers['vqvae']}")
+
+        # 5. a ring of one rank against the flash kernel (B 4, L 512, H 24,
+        # bf16, random lengths); a comparison, not a path launch
+        gen = torch.Generator(device=device).manual_seed(7)
+        q, k, v = (torch.randn(4, 512, 24, 64, device=device,
+                               generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        lengths = torch.tensor([512, 300, 77, 1], dtype=torch.int32,
+                               device=device)
+        got = ring.ring_attention(ring.shard_sequence(q),
+                                  ring.shard_sequence(k),
+                                  ring.shard_sequence(v), lengths)
+        kernel = fa.flash_attention(q, k, v, lengths)
+        d = (got.float() - kernel.float()).abs()
+        numbers["ring"] = {"max_abs_err": d.max().item(),
+                           "mean_abs_err": d.mean().item()}
+        if not (numbers["ring"]["max_abs_err"] <= TOL_MAX
+                and numbers["ring"]["mean_abs_err"] <= TOL_MEAN):
+            failures.append(f"ring vs flash kernel: {numbers['ring']}")
+    finally:
+        pmesh.close(dist.is_initialized())
+        for key in env:
+            os.environ.pop(key, None)
+    shutil.rmtree(PARALLEL_DIR)
+    numbers["flash_launches"] = flash
+    numbers["flash_launches_comparison_runs"] = flash_plain
+    numbers["phase_s"] = time.time() - t_phase
+    if failures:
+        print("[parallel path] " + json.dumps(numbers), flush=True)
+        raise AssertionError("parallel path: " + "; ".join(failures))
+    return numbers, flash
+
+
 def target_sequence(directory):
     """The sequence of the one PDB of a target directory."""
     from esmdiff_tpu_torch.api.protein_api import ESMProtein
@@ -4106,7 +4528,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("[pipeline path] " + json.dumps(p_numbers), flush=True)
 
-    # 14. the kernels line (headline shape: the trunk's), the device line;
+    # 14. the parallel path: a real NCCL group of one rank; the trainer's
+    # strategies, --data_parallel sampling, serving and tokenizer training,
+    # --profile, the ring
+    par_numbers, par_flash = parallel_path(
+        torch, ops, card, target_dirs[L128_TARGET.stem])
+    print("[parallel path] " + json.dumps(par_numbers), flush=True)
+
+    # 15. the kernels line (headline shape: the trunk's), the device line;
     # launches from the paths that run the kernel, fused_ffn's from its
     # phase (no model path runs it)
     by_path = {"default path": launches, "fused path": f_launches,
@@ -4118,11 +4547,13 @@ def main() -> int:
                "weights path": {**dict.fromkeys(KERNELS, 0),
                                 "flash_attention": w_flash},
                "pipeline path": {**dict.fromkeys(KERNELS, 0),
-                                 "flash_attention": p_flash}}
+                                 "flash_attention": p_flash},
+               "parallel path": {**dict.fromkeys(KERNELS, 0),
+                                 "flash_attention": par_flash}}
     launches_from = {"flash_attention": ("default path", "inpaint path",
                                          "train path", "vqvae path",
                                          "ar path", "weights path",
-                                         "pipeline path"),
+                                         "pipeline path", "parallel path"),
                      "small_attention": ("fused path",),
                      "fused_qkv": ("fused path",)}
     entries = []

@@ -13,11 +13,22 @@ bucket, and the packed engine places each sample's draws where its segment
 lies (``SegmentNoise``), so a sample draws the same solo, coalesced or
 packed.  The gibbs and eb samplers take their uniforms from a second
 factory of the same form (``uniform_factory``).
+
+Data parallelism (``devices=``): one replica of the trunk and the sigma
+embedder a device, in one process, and each batch's rows split across
+them, each part on a thread of its own (the JAX sampler is one controller
+too, and the server one process).  A row's draws depend only on (its
+request's seed, its index), so the ensemble is the same with or without
+the split, up to the trunk's floating-point reduction order at the
+parts' row counts.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -166,6 +177,15 @@ class SegmentNoise:
                 stay_u.view(self.R, self.T))
 
 
+@dataclasses.dataclass
+class Replica:
+    """A copy of the runtime's trunk (and sigma embedder) on one device."""
+
+    device: torch.device
+    trunk: torch.nn.Module
+    mdlm: MDLM
+
+
 class EnsembleSampler:
     """Runs ddpm (fine-tuned MDLM), gibbs (iterative unmasking) or eb
     (entropy-bounded unmasking) ensemble generation over an
@@ -175,11 +195,16 @@ class EnsembleSampler:
                  mdlm_cfg: MDLMConfig = MDLMConfig(),
                  plan_policy: str = "ladder",
                  noise_factory: NoiseFactory = generator_noise,
-                 uniform_factory: UniformFactory = generator_uniforms):
+                 uniform_factory: UniformFactory = generator_uniforms,
+                 devices: Optional[Sequence] = None):
         """noise_factory: builds each ddpm batch's noise source from its
         rows' (request seed, sample index) pairs; uniform_factory does the
         same for the gibbs and eb samplers.  The defaults draw from one
-        ``torch.Generator`` per row; tests inject JAX's draws here."""
+        ``torch.Generator`` per row; tests inject JAX's draws here.
+        devices: split each batch's rows across one replica a device (the
+        runtime's own modules on its device, copies elsewhere); None = the
+        runtime's device alone.  The VQ decode and the encoder stay on the
+        runtime's device."""
         self.runtime = runtime
         self.plan_policy = plan_policy
         self.noise = noise or LogLinearNoise()
@@ -188,8 +213,39 @@ class EnsembleSampler:
         self.uniform_factory = uniform_factory
         self.mdlm = MDLM(runtime.trunk, runtime.sigma_embedder,
                          noise=self.noise, cfg=mdlm_cfg)
-        # the step count of each batch of the last eb_ensemble call
+        self.replicas = [Replica(runtime.device, runtime.trunk, self.mdlm)]
+        if devices:
+            self.replicas = [self._replica(torch.device(d), i)
+                             for i, d in enumerate(devices)]
+        # the step count of each batch (each part of a split batch) of the
+        # last eb_ensemble call
         self.eb_steps: list[int] = []
+
+    def _replica(self, dev: torch.device, i: int) -> Replica:
+        rt = self.runtime
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", 0)
+        if i == 0 and dev == rt.device:
+            return Replica(dev, rt.trunk, self.mdlm)
+        trunk = copy.deepcopy(rt.trunk).to(dev)
+        sigma = (None if rt.sigma_embedder is None
+                 else copy.deepcopy(rt.sigma_embedder).to(dev))
+        return Replica(dev, trunk, MDLM(trunk, sigma, noise=self.noise,
+                                        cfg=self.mdlm_cfg))
+
+    def _parallel(self, jobs: list) -> list:
+        """Run ``jobs`` (replica, fn) -> [fn(replica), ...] in order: in
+        this thread on one replica, else on a thread a replica."""
+        def call(job):
+            rep, fn = job
+            with (torch.cuda.device(rep.device) if rep.device.type == "cuda"
+                  else contextlib.nullcontext()):
+                return fn(rep)
+
+        if len(self.replicas) == 1:
+            return [call(j) for j in jobs]
+        with ThreadPoolExecutor(len(self.replicas)) as pool:
+            return list(pool.map(call, jobs))
 
     # -- shared helpers -------------------------------------------------------
     def _padded_tokens(self, sequence: str, pad_to: Optional[int]):
@@ -317,43 +373,60 @@ class EnsembleSampler:
         ``prior_rows``, batch by batch: one interior-token array per
         request."""
         Lpad = seq_rows.shape[1]
-        dev = self.runtime.device
 
-        def run(idx, seq_b, lengths, pack):
-            return self.mdlm.ddpm_sample(
+        def run(rep, idx, seq_b, lengths, pack):
+            return rep.mdlm.ddpm_sample(
                 seq_b, self.noise_factory(id_rows[idx], Lpad,
-                                          self.mdlm_cfg.vocab_size, dev),
+                                          self.mdlm_cfg.vocab_size,
+                                          rep.device),
                 num_steps=num_steps, eps=eps,
-                input_prior=torch.as_tensor(prior_rows[idx], device=dev),
+                input_prior=torch.as_tensor(prior_rows[idx],
+                                            device=rep.device),
                 sample_max_t=sample_max_t, lengths=lengths, pack=pack)
 
-        toks = self._run_batches(seq_rows, max(lws), budget, max_batch, run)
+        toks, _ = self._run_batches(seq_rows, max(lws), budget, max_batch,
+                                    run)
         return self._split_rows(toks, lws, counts)
 
     def _run_batches(self, seq_rows: np.ndarray, length_with_specials: int,
                      budget: int, max_batch: Optional[int], run):
         """Plan the (N, Lpad) rows into batches (``plan_batches``) and run
-        each through ``run(idx, seq_b, lengths, pack)`` -> (B, Lpad)
-        tokens, where idx are the batch's row indices; returns the N rows'
-        tokens.  The plan's final round-up batch may exceed the remaining
-        rows: its surplus rows re-sample the last row and are trimmed."""
+        each through ``run(replica, idx, seq_b, lengths, pack)`` -> (B,
+        Lpad) tokens, or (tokens, info), where idx are the batch's row
+        indices (with several replicas, each a contiguous part of the
+        batch's rows); returns the N rows' tokens and the infos in order.
+        The plan's final round-up batch may exceed the remaining rows: its
+        surplus rows re-sample the last row and are trimmed."""
         N, Lpad = seq_rows.shape
-        dev = self.runtime.device
-        outs = []
+
+        def part(idx):
+            def on(rep):
+                seq_b = torch.as_tensor(seq_rows[idx], dtype=torch.long,
+                                        device=rep.device)
+                # padding is a contiguous suffix, so prefix lengths fully
+                # describe the mask (the kernel path)
+                lengths = (seq_b != C.SEQUENCE_PAD_TOKEN).sum(
+                    dim=-1, dtype=torch.int32)
+                out = run(rep, idx, seq_b, lengths,
+                          self._pack(len(idx), Lpad))
+                toks, info = out if isinstance(out, tuple) else (out, None)
+                return toks.cpu().numpy().astype(np.int32), info
+            return on
+
+        outs, infos = [], []
         start = 0
         for B in plan_batches(length_with_specials, N, budget, max_batch,
                               policy=self.plan_policy):
             idx = np.minimum(np.arange(start, start + B), N - 1)
-            seq_b = torch.as_tensor(seq_rows[idx], dtype=torch.long,
-                                    device=dev)
-            # padding is a contiguous suffix, so prefix lengths fully
-            # describe the mask (the kernel path)
-            lengths = (seq_b != C.SEQUENCE_PAD_TOKEN).sum(
-                dim=-1, dtype=torch.int32)
-            toks = run(idx, seq_b, lengths, self._pack(B, Lpad))
-            outs.append(toks.cpu().numpy().astype(np.int32))
+            parts = [p for p in np.array_split(idx, len(self.replicas))
+                     if len(p)]
+            for toks, info in self._parallel(
+                    [(rep, part(p)) for rep, p in zip(self.replicas, parts)]):
+                outs.append(toks)
+                if info is not None:
+                    infos.append(info)
             start += B
-        return np.concatenate(outs, axis=0)[:N]
+        return np.concatenate(outs, axis=0)[:N], infos
 
     @staticmethod
     def _pack(B: int, L: int) -> int:
@@ -465,9 +538,9 @@ class EnsembleSampler:
         Rb = min(1 << (max_rows.bit_length() - 1),
                  max(8, _pow2_at_least(R)))
 
-        dev = self.runtime.device
         out_per_seg: list = [None] * len(segs)
-        for start in range(0, R, Rb):
+
+        def chunk(start):
             seq_a = np.full((Rb, T), C.SEQUENCE_PAD_TOKEN, np.int64)
             prior = np.full((Rb, T), C.STRUCTURE_PAD_TOKEN, np.int64)
             segid = np.full((Rb, T), -1, np.int64)
@@ -484,21 +557,33 @@ class EnsembleSampler:
                     posit[r, off:off + lw] = np.arange(lw)
                     placed.append((gseg, r, off, lw))
                     off += lw
-            noise = SegmentNoise(
-                self.noise_factory,
-                [(seeds[segs[g][0]], segs[g][1], lw, r, off)
-                 for g, r, off, lw in placed],
-                Rb, T, self.mdlm_cfg.vocab_size, dev)
-            toks = self.mdlm.ddpm_sample(
-                torch.as_tensor(seq_a, device=dev), noise,
-                num_steps=num_steps, eps=eps,
-                input_prior=torch.as_tensor(prior, device=dev),
-                sample_max_t=sample_max_t,
-                sequence_id=torch.as_tensor(segid, device=dev),
-                positions=torch.as_tensor(posit, device=dev))
-            toks = toks.cpu().numpy().astype(np.int32)
-            for gseg, r, off, lw in placed:
-                out_per_seg[gseg] = toks[r, off + 1:off + lw - 1]
+
+            def on(rep):
+                dev = rep.device
+                noise = SegmentNoise(
+                    self.noise_factory,
+                    [(seeds[segs[g][0]], segs[g][1], lw, r, off)
+                     for g, r, off, lw in placed],
+                    Rb, T, self.mdlm_cfg.vocab_size, dev)
+                toks = rep.mdlm.ddpm_sample(
+                    torch.as_tensor(seq_a, device=dev), noise,
+                    num_steps=num_steps, eps=eps,
+                    input_prior=torch.as_tensor(prior, device=dev),
+                    sample_max_t=sample_max_t,
+                    sequence_id=torch.as_tensor(segid, device=dev),
+                    positions=torch.as_tensor(posit, device=dev))
+                return placed, toks.cpu().numpy().astype(np.int32)
+            return on
+
+        # each chunk of Rb rows on one replica, the chunks round robin
+        starts = list(range(0, R, Rb))
+        n = len(self.replicas)
+        for i in range(0, len(starts), n):
+            jobs = [(self.replicas[j], chunk(st))
+                    for j, st in enumerate(starts[i:i + n])]
+            for placed, toks in self._parallel(jobs):
+                for gseg, r, off, lw in placed:
+                    out_per_seg[gseg] = toks[r, off + 1:off + lw - 1]
         res, k = [], 0
         for c in counts:
             res.append(np.stack(out_per_seg[k:k + c]))
@@ -506,14 +591,14 @@ class EnsembleSampler:
         return res
 
     # -- gibbs and eb ---------------------------------------------------------
-    def _trunk_forward(self, pack: int = 1):
+    def _trunk_forward(self, pack: int = 1, trunk=None):
         """(tokens, seq_tokens, lengths) -> float32 raw structure logits
-        (B, L, V), the specials shielded unless the head is the stock
-        4096-way one, optionally through the sequence-packed view (the
-        caller keeps (B, L)).  No mask-token shield: on the stock head the
-        mask token lies past V, so gibbs and eb do not go through
-        ``MDLM.forward_logits``."""
-        trunk = self.runtime.trunk
+        (B, L, V) of ``trunk`` (default the runtime's), the specials
+        shielded unless the head is the stock 4096-way one, optionally
+        through the sequence-packed view (the caller keeps (B, L)).  No
+        mask-token shield: on the stock head the mask token lies past V,
+        so gibbs and eb do not go through ``MDLM.forward_logits``."""
+        trunk = self.runtime.trunk if trunk is None else trunk
         stock_head = trunk.cfg.head_type == "esm3"
 
         def forward(tokens, seq_tokens, lengths):
@@ -537,17 +622,18 @@ class EnsembleSampler:
         return forward
 
     def _unmask(self, rows, counts: Sequence[int], budget: int,
-                max_batch: Optional[int], sample) -> list[np.ndarray]:
+                max_batch: Optional[int], sample):
         """An unmasking sampler, ``sample(forward, uniforms, init,
-        dmask)``, over a same-bucket group's ``rows`` (``_request_rows``),
-        batch by batch through ``_trunk_forward``: one (counts[i], L_i)
-        interior-token array per request."""
+        dmask)`` -> tokens or (tokens, info), over a same-bucket group's
+        ``rows`` (``_request_rows``), batch by batch through
+        ``_trunk_forward``: (one (counts[i], L_i) interior-token array per
+        request, the infos in batch order)."""
         seq_rows, init_rows, dmask_rows, id_rows, lws = rows
         Lpad = seq_rows.shape[1]
-        dev = self.runtime.device
 
-        def run(idx, seq_b, lengths, pack):
-            forward = self._trunk_forward(pack)
+        def run(rep, idx, seq_b, lengths, pack):
+            forward = self._trunk_forward(pack, rep.trunk)
+            dev = rep.device
             return sample(
                 lambda tokens: forward(tokens, seq_b, lengths),
                 self.uniform_factory(id_rows[idx], Lpad,
@@ -555,8 +641,9 @@ class EnsembleSampler:
                 torch.as_tensor(init_rows[idx], device=dev),
                 torch.as_tensor(dmask_rows[idx], device=dev))
 
-        toks = self._run_batches(seq_rows, max(lws), budget, max_batch, run)
-        return self._split_rows(toks, lws, counts)
+        toks, infos = self._run_batches(seq_rows, max(lws), budget,
+                                        max_batch, run)
+        return self._split_rows(toks, lws, counts), infos
 
     def _logits_width(self) -> int:
         cfg = self.runtime.trunk.cfg
@@ -599,7 +686,7 @@ class EnsembleSampler:
             dmask_rows[:, 1:Lw - 1] = ~known
 
         return self._unmask(rows, [num_samples], budget, max_batch,
-                            _gibbs_sample(config))[0]
+                            _gibbs_sample(config))[0][0]
 
     def gibbs_ensemble_multi(self, sequences: Sequence[str],
                              counts: Sequence[int],
@@ -616,7 +703,8 @@ class EnsembleSampler:
             seeds = [seed + i for i in range(len(sequences))]
 
         return self._unmask(self._request_rows(sequences, counts, seeds),
-                            counts, budget, max_batch, _gibbs_sample(config))
+                            counts, budget, max_batch,
+                            _gibbs_sample(config))[0]
 
     def gibbs_ensemble_mixed(self, sequences: Sequence[str],
                              counts: Sequence[int],
@@ -652,18 +740,15 @@ class EnsembleSampler:
         """Adaptive-step unmasking (``entropy_bounded_unmask_sample``):
         (num_samples, L) interior tokens.  Each batch's step count is kept
         in ``self.eb_steps``."""
-        self.eb_steps = []
-
         def sample(fwd, uniforms, init, dmask):
-            toks, steps = entropy_bounded_unmask_sample(
+            return entropy_bounded_unmask_sample(
                 fwd, uniforms, init, dmask, entropy_budget=entropy_budget,
                 temperature=temperature, top_p=top_p, max_steps=max_steps)
-            self.eb_steps.append(steps)
-            return toks
 
-        return self._unmask(
+        (toks,), self.eb_steps = self._unmask(
             self._request_rows([sequence], [num_samples], [seed]),
-            [num_samples], budget, max_batch, sample)[0]
+            [num_samples], budget, max_batch, sample)
+        return toks
 
     # -- decode to proteins ---------------------------------------------------
     def decode_ensemble(self, sequence: str, tokens: np.ndarray,

@@ -21,8 +21,11 @@ paired with a VQ-VAE by ``--vqvae_ckpt`` (``esmdiff-torch-train-vqvae``'s
 export or ``vqvae_from_reference``'s conversion; without ``--ckpt`` it
 exits with an error).  With several ``--input`` directories each target
 lands in ``<output>/<dir name>/``, names that collide qualified by their
-parents (``a--targets``, ``b--targets``).  The JAX package's checkpoints,
-profiling and data parallelism are not ported yet and raise.
+parents (``a--targets``, ``b--targets``).  ``--data_parallel`` splits
+each batch's rows across a replica of the trunk on every visible card (one
+process; ``EnsembleSampler(devices=...)``); ``--profile DIR`` writes a
+``torch.profiler`` trace of the sampling phase to ``DIR/trace.json``.
+The JAX package's orbax checkpoints are not ported yet and raise.
 
     python -m esmdiff_tpu_torch.cli.sample --input data/targets/bpti \\
         --output output/torch --mode gibbs --num_steps 16 --num_samples 100
@@ -45,10 +48,7 @@ from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
 from esmdiff_tpu_torch.convert import checkpoints
 from esmdiff_tpu_torch.core import protein as protein_io
 from esmdiff_tpu_torch.ops.refine import refine_ca_ensemble
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet")
+from esmdiff_tpu_torch.utils.logging import start_profiler, stop_profiler
 
 
 def build_runtime(args) -> ESM3Runtime:
@@ -113,8 +113,12 @@ def get_argparser():
                    choices=["full", "tiny"],
                    help="Trunk size when no ckpt is given.")
     p.add_argument("--max_batch", type=int, default=None)
-    p.add_argument("--data_parallel", action="store_true")
-    p.add_argument("--profile", type=str, default=None)
+    p.add_argument("--data_parallel", action="store_true",
+                   help="Split each batch's rows across a replica of the "
+                        "trunk on every visible card.")
+    p.add_argument("--profile", type=str, default=None,
+                   help="Directory for a torch.profiler trace of the "
+                        "sampling phase (trace.json).")
     p.add_argument("--skip_existing", action="store_true",
                    help="Skip targets whose output PDB already exists.")
     p.add_argument("--refine", action="store_true",
@@ -138,10 +142,6 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
     quantized, which raises on matmul weights held in bf16: build such a
     runtime with ``build_runtime`` or ``random_init(quant="int8")``."""
     args = get_argparser().parse_args(argv)
-    for flag, on in (("--profile", bool(args.profile)),
-                     ("--data_parallel", args.data_parallel)):
-        if on:
-            _not_ported(flag)
     data_paths = [Path(p) for p in args.input]
     for dp in data_paths:
         assert dp.is_dir(), f"--input must be a directory: {dp}"
@@ -158,7 +158,12 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
         runtime = runtime.quantize("int8")
     if args.quant == "int8":
         print("[quant] trunk projections running W8A8 int8")
-    sampler = EnsembleSampler(runtime, plan_policy=args.plan)
+    devices = None
+    if args.data_parallel:
+        devices = data_parallel_devices(runtime)
+        print(f"[data_parallel] sampling across {len(devices)} device(s)")
+    sampler = EnsembleSampler(runtime, plan_policy=args.plan,
+                              devices=devices)
     mask_ids = ([int(i) for i in args.mask_ids.split(",")]
                 if args.mask_ids else None)
     filled_ids = ([int(i) for i in args.filled_ids.split(",")]
@@ -180,6 +185,7 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
             r.setdefault("key", r["target"])
             prior[r["key"]] = r
     report = []
+    profiler = start_profiler(runtime.device) if args.profile else None
     for path, out_dir_t in targets:
         key = f"{out_dir_t.name}/{path.stem}" if multi_input else path.stem
         out_file = out_dir_t / f"{path.stem}.pdb"
@@ -231,6 +237,10 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
             **({"eb_steps": list(sampler.eb_steps)} if args.mode == "eb"
                else {}),
         })
+    if profiler is not None:
+        _sync(runtime.device)
+        print(f"[profile] trace written to "
+              f"{stop_profiler(profiler, Path(args.profile))}")
     prior.update({r["key"]: r for r in report})
     timings_path.write_text(
         json.dumps(sorted(prior.values(), key=lambda r: r["key"]), indent=2))
@@ -262,6 +272,14 @@ def refine_in_place(prots: list[ESMProtein], device) -> None:
                           nan=0.0)
     for p, s in zip(prots, shift):
         p.coordinates += s[:, None, :]
+
+
+def data_parallel_devices(runtime: ESM3Runtime) -> list:
+    """Every visible card when the runtime is on one; else the runtime's
+    device alone."""
+    if runtime.device.type != "cuda":
+        return [runtime.device]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def _sync(device):

@@ -1,7 +1,9 @@
 """Warm conformation-sampling server on the port.
 
 Port of ``esmdiff_tpu/cli/serve.py``: the model loads once per process and
-stays on the card across requests.
+stays on the card across requests.  ``--data_parallel`` puts a replica of
+the trunk on every visible card behind the one ``SamplerService``; each
+batch's rows split across them.
 
 Endpoints (JSON over HTTP, stdlib only):
 
@@ -444,15 +446,17 @@ def get_argparser():
 
 
 def main(argv=None):
-    from esmdiff_tpu_torch.cli.sample import build_runtime
+    from esmdiff_tpu_torch.cli.sample import (build_runtime,
+                                              data_parallel_devices)
 
     args = get_argparser().parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel is not ported yet")
     runtime = build_runtime(args)
     if args.quant == "int8":
         print("[quant] trunk projections running W8A8 int8")
-    service = SamplerService(EnsembleSampler(runtime),
+    devices = data_parallel_devices(runtime) if args.data_parallel else None
+    if devices:
+        print(f"[data_parallel] sampling across {len(devices)} device(s)")
+    service = SamplerService(EnsembleSampler(runtime, devices=devices),
                              max_samples=args.max_samples,
                              coalesce=args.coalesce == "on",
                              max_batch=args.max_batch)

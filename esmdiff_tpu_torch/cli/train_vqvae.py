@@ -6,7 +6,11 @@ training (``train/vqvae.py``) over a directory of structures, exported in
 the port's vqvae checkpoint layout, which the sample and serve CLIs load
 through ``--vqvae_ckpt``.  Same flags, plus ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu`` is given).
-``--data_parallel`` is not ported yet and raises.
+``--data_parallel`` trains one process per card under torchrun (DDP; the
+batch divides by the world size; rank 0 exports):
+
+    torchrun --nproc_per_node 8 -m esmdiff_tpu_torch.cli.train_vqvae \\
+        --input data/targets --output ckpt/vqvae --data_parallel
 
 Inputs: a directory of ``.pdb`` files and/or ``.npz`` chain files
 (atom_positions/atom_mask layout).  Chains shorter than 10 residues or
@@ -30,6 +34,8 @@ from esmdiff_tpu_torch.core import protein as protein_io
 from esmdiff_tpu_torch.core import residue_constants as rc
 from esmdiff_tpu_torch.device import resolve_device
 from esmdiff_tpu_torch.models.vqvae import DecoderConfig, EncoderConfig
+from esmdiff_tpu_torch.parallel.mesh import (close, init_from_env,
+                                             local_device, rank, world)
 from esmdiff_tpu_torch.train.vqvae import (VQAugmentConfig, VQLossConfig,
                                            export_vqvae, train_vqvae)
 
@@ -114,7 +120,8 @@ def main(argv=None):
     p.add_argument("--restart_every", type=int, default=500,
                    help="dead-code restart interval (0 = off)")
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported yet (raises)")
+                   help="one process per card under torchrun (DDP); "
+                        "--batch is the global batch")
     p.add_argument("--augment", action="store_true",
                    help="train-batch crop/jitter/rotation augmentation "
                         "(VQAugmentConfig defaults)")
@@ -127,19 +134,27 @@ def main(argv=None):
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions.")
     args = p.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel is not ported yet")
-    device = resolve_device(args.device)
+    device = resolve_device(local_device(args.device))
+    opened = init_from_env(device) if args.data_parallel else False
+    try:
+        return _run(args, device)
+    finally:
+        close(opened)
 
+
+def _run(args, device):
+    say = print if rank() == 0 else (lambda *a, **k: None)
     enc_cfg, dec_cfg = _geometry(args.scale)
-    coords, lengths, names = load_corpus(Path(args.input), args.max_len)
+    coords, lengths, names = load_corpus(Path(args.input), args.max_len,
+                                         log=say)
     N = len(names)
     rs = np.random.RandomState(args.seed)
     n_val = max(1, int(N * args.val_frac)) if N >= 4 else 0
     val_idx = rs.permutation(N)[:n_val] if n_val else None
-    print(f"[train_vqvae] {N} structures (pad_L={coords.shape[1]}, "
-          f"{n_val} val), scale={args.scale}, {args.steps} steps "
-          f"@ B={args.batch}")
+    say(f"[train_vqvae] {N} structures (pad_L={coords.shape[1]}, "
+        f"{n_val} val), scale={args.scale}, {args.steps} steps "
+        f"@ B={args.batch}" + (f" over {world()} ranks"
+                               if args.data_parallel else ""))
 
     t0 = time.time()
     res = train_vqvae(
@@ -147,22 +162,24 @@ def main(argv=None):
         batch=args.batch, lr=args.lr,
         loss_cfg=VQLossConfig(beta=args.beta, recon=args.recon),
         seed=args.seed, restart_every=args.restart_every, val_idx=val_idx,
+        data_parallel=args.data_parallel,
         augment=VQAugmentConfig(
             crop=args.aug_crop, crop_min=args.aug_crop_min,
             jitter=args.aug_jitter) if args.augment else None,
         device=device)
-    out = Path(args.output)
-    export_vqvae(out, enc_cfg, dec_cfg, res.params)
     summary = {
         "n_structures": N, "steps": args.steps,
         "final_loss": res.losses[-1],
         "n_live_codes": res.n_live_codes, "n_codes": enc_cfg.n_codes,
         "wall_s": round(time.time() - t0, 1),
     }
-    (out / "train_summary.json").write_text(json.dumps(summary, indent=2))
-    print(f"[train_vqvae] done: {json.dumps(summary)} -> {out}")
+    if rank() == 0:
+        out = Path(args.output)
+        export_vqvae(out, enc_cfg, dec_cfg, res.params)
+        (out / "train_summary.json").write_text(
+            json.dumps(summary, indent=2))
+        print(f"[train_vqvae] done: {json.dumps(summary)} -> {out}")
     return summary
-
 
 if __name__ == "__main__":
     main()

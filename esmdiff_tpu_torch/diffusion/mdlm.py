@@ -12,7 +12,10 @@ The loss draws its randomness from a draw source (``LossDraws``): the
 condition-dropout uniform, the condition-mask uniforms, the time uniforms,
 the packed permutation and the move uniforms.  The default,
 ``GeneratorDraws``, draws from one ``torch.Generator`` on the device; the
-parity tests inject the draws JAX makes from its key.
+parity tests inject the draws JAX makes from its key.  Under data
+parallelism every rank draws the global batch's values and keeps its rows
+(a ``parallel.mesh.RowShard``), so the draws do not depend on the process
+layout; ``RecordedDraws`` replays a run's draws in another process.
 
 Randomness is an injectable noise source: a callable ``step -> (gumbel
 (B, L, V) float32, stay_u (B, L) float32)`` giving the draws of step
@@ -32,6 +35,7 @@ import torch
 
 from esmdiff_tpu_torch.core import constants as C
 from esmdiff_tpu_torch.ops.packing import packed_positions, packed_segment_ids
+from esmdiff_tpu_torch.parallel.mesh import RowShard
 from .noise import LogLinearNoise, Noise
 
 NEG_INFINITY = -1e6
@@ -107,6 +111,57 @@ class GeneratorDraws:
 
     def move(self, shape):
         return self._uniform(shape)
+
+
+class RecordedDraws:
+    """A draw source that records what ``source`` draws (``records``: a
+    list of (method, tensor on the CPU), picklable), or, with
+    ``source=None``, replays ``records`` in order on ``device``: a run's
+    draws carried to another process or package."""
+
+    def __init__(self, source=None, records=None, device="cpu"):
+        self.source, self.device = source, torch.device(device)
+        self.records = [] if records is None else list(records)
+        self._next = 0
+
+    def _call(self, method, *args):
+        if self.source is not None:
+            out = getattr(self.source, method)(*args)
+            self.records.append((method, out.detach().cpu()))
+            return out
+        name, value = self.records[self._next]
+        if name != method:
+            raise ValueError(f"draw {self._next} was {name!r}, asked for "
+                             f"{method!r}")
+        self._next += 1
+        return value.to(self.device)
+
+    def dropout(self):
+        return self._call("dropout")
+
+    def condition_mask(self, shape):
+        return self._call("condition_mask", shape)
+
+    def times(self, n):
+        return self._call("times", n)
+
+    def permutation(self, n):
+        return self._call("permutation", n)
+
+    def move(self, shape):
+        return self._call("move", shape)
+
+
+class _RowDraws:
+    """``move`` draws of a shard's rows: the global batch's draw, of which
+    it keeps its rows."""
+
+    def __init__(self, draws: LossDraws, shard: RowShard):
+        self.draws, self.shard = draws, shard
+
+    def move(self, shape):
+        return self.shard.rows(self.draws.move(
+            (self.shard.total, *tuple(shape)[1:])))
 
 
 def sample_t(draws: LossDraws, n: int, cfg: MDLMConfig, noise: Noise):
@@ -271,7 +326,8 @@ class MDLM:
         return logits, seq_logits
 
     # -- training objective -------------------------------------------------
-    def _condition(self, condition_seq, draws: LossDraws, training: bool):
+    def _condition(self, condition_seq, draws: LossDraws, training: bool,
+                   shard: RowShard):
         """The conditioning sequence as the loss sees it: dropped whole
         (``condition_dropout``), masked per position
         (``condition_mask_rate``, pads kept) while training, or all
@@ -282,7 +338,8 @@ class MDLM:
             condition_seq = torch.where(drop, C.SEQUENCE_MASK_TOKEN,
                                         condition_seq)
         if cfg.condition_mask_rate > 0 and training:
-            m = ((draws.condition_mask(condition_seq.shape)
+            m = ((shard.rows(draws.condition_mask(
+                (shard.total, *condition_seq.shape[1:])))
                   < cfg.condition_mask_rate)
                  & (condition_seq != C.SEQUENCE_PAD_TOKEN))
             condition_seq = torch.where(m, C.SEQUENCE_MASK_TOKEN,
@@ -306,9 +363,11 @@ class MDLM:
         return sigma, 1 - torch.exp(-sigma), dsigma / torch.expm1(sigma)
 
     def _nelbo(self, logits, seq_logits, x0, sequence_tokens, loss_mask,
-               weight):
+               weight, shard: RowShard):
         """Masked mean of the per-token NELBO over ``loss_mask`` (plus the
-        sequence NLL with ``sequence_prediction``) -> (loss, breakdown)."""
+        sequence NLL with ``sequence_prediction``) -> (loss, breakdown);
+        of a shard's rows: its part of the global batch's mean (the count
+        summed over the data group)."""
         cfg = self.cfg
         log_p_theta = logits.gather(-1, x0[..., None]).squeeze(-1)
         if cfg.change_of_variables or cfg.importance_sampling:
@@ -316,7 +375,7 @@ class MDLM:
                 -torch.exp(-self.noise.sigma_min))
         else:
             per_tok = -log_p_theta * weight
-        denom = loss_mask.sum().clamp_min(1.0)
+        denom = shard.sum(loss_mask.sum()).clamp_min(1.0)
         loss = (per_tok * loss_mask).sum() / denom
         breakdown = {"nelbo": loss}
         if cfg.sequence_prediction:
@@ -329,33 +388,39 @@ class MDLM:
             breakdown["seq_nll"] = seq_nll
         return loss, breakdown
 
-    def loss(self, batch: dict, draws: LossDraws, training: bool = True):
+    def loss(self, batch: dict, draws: LossDraws, training: bool = True,
+             shard: Optional[RowShard] = None):
         """Continuous-time NELBO over padded rows, one diffusion time a row.
 
         batch: structure_tokens (B, L) int64, sequence_tokens (B, L) int64,
         mask (B, L) float32, optional non_moving_mask (B, L).  The trunk
         runs with no attention mask (the reference attends into padding),
         so at every L it takes the attention kernel.
+        shard: the batch is these rows of a global batch
+        (``parallel/mesh.py``): the draws are the global batch's, of which
+        it keeps its rows, and the loss is its part of the global loss.
         Returns (loss, dict of breakdown metrics)."""
         cfg = self.cfg
         x0 = batch["structure_tokens"]
-        B = x0.shape[0]
+        shard = shard or RowShard.whole(x0.shape[0])
         condition_seq = self._condition(batch["sequence_tokens"], draws,
-                                        training)
+                                        training, shard)
         loss_mask = batch["mask"] * (x0 != C.STRUCTURE_PAD_TOKEN)
         cond, move_chance, weight = self._noise_levels(
-            sample_t(draws, B, cfg, self.noise))
+            shard.rows(sample_t(draws, shard.total, cfg, self.noise)))
         xt, condition_seq = q_xt(
-            draws, x0, move_chance[:, None], cfg, condition_seq=condition_seq,
+            _RowDraws(draws, shard), x0, move_chance[:, None], cfg,
+            condition_seq=condition_seq,
             non_moving_mask=batch.get("non_moving_mask"))
         logits, seq_logits = self.forward_logits(
             xt, condition_seq, cond[:, None], parameterize=True)
         return self._nelbo(logits, seq_logits, x0, batch["sequence_tokens"],
                            loss_mask, None if weight is None
-                           else weight[:, None])
+                           else weight[:, None], shard)
 
     def loss_packed(self, batch: dict, draws: LossDraws, max_segments: int,
-                    training: bool = True, t_override=None):
+                    training: bool = True, t_override=None,
+                    shard: Optional[RowShard] = None):
         """NELBO over sequence-packed rows (``train/data.py``
         ``packed_batches``): the objective of ``loss`` with one diffusion
         time per segment, attention segment-masked (the plain path) and
@@ -364,26 +429,30 @@ class MDLM:
         batch: structure_tokens / sequence_tokens / mask (B, P), plus
         segment_ids (B, P) with -1 on padding and positions (B, P).
         max_segments: S, the per-row segment-slot count of the (B, S) time
-        draw.  t_override: optional (B, S) times in place of the draw."""
+        draw.  t_override: optional (B, S) times in place of the draw.
+        shard: as ``loss``'s."""
         cfg = self.cfg
         x0 = batch["structure_tokens"]
         seg = batch["segment_ids"]
         B = x0.shape[0]
+        shard = shard or RowShard.whole(B)
         S = int(max_segments)
         valid = seg >= 0
         segc = seg.clamp(0, S - 1).long()
         condition_seq = self._condition(batch["sequence_tokens"], draws,
-                                        training)
+                                        training, shard)
         loss_mask = (batch["mask"] * (x0 != C.STRUCTURE_PAD_TOKEN)
                      * valid.float())
-        t = (packed_segment_times(draws, B, S, cfg, self.noise)
+        t = (shard.rows(packed_segment_times(draws, shard.total, S, cfg,
+                                             self.noise))
              if t_override is None else t_override)
         cond_seg, move_seg, weight_seg = self._noise_levels(t)   # (B, S)
         # padding slots stay un-noised (outside attention and loss)
         nmm = ~valid
         if batch.get("non_moving_mask") is not None:
             nmm = nmm | batch["non_moving_mask"].bool()
-        xt, condition_seq = q_xt(draws, x0, move_seg.gather(1, segc), cfg,
+        xt, condition_seq = q_xt(_RowDraws(draws, shard), x0,
+                                 move_seg.gather(1, segc), cfg,
                                  condition_seq=condition_seq,
                                  non_moving_mask=nmm)
         # the per-segment sigma embedding, gathered to the tokens
@@ -399,7 +468,7 @@ class MDLM:
                       else None)
         return self._nelbo(logits, seq_logits, x0, batch["sequence_tokens"],
                            loss_mask, None if weight_seg is None
-                           else weight_seg.gather(1, segc))
+                           else weight_seg.gather(1, segc), shard)
 
     @torch.no_grad()
     def ddpm_sample(self, sequence_tokens, noise_source: NoiseSource,

@@ -86,7 +86,12 @@ class GeometricAttention(nn.Module):
     Values are exchanged in the global frame and rotated back into the
     local frame of the receiving residue.  ``proj`` runs in ``dtype`` and
     its output in float32; ``out`` takes its input cast back to ``dtype``.
+    tp: set by ``parallel.tp.shard_modules`` when ``proj`` and ``out`` hold
+    this rank's heads only (the per-head scales are sliced at use and the
+    output is summed over the model axis).
     """
+
+    tp = None
 
     def __init__(self, d_model: int, v_heads: int,
                  num_vector_messages: int = 1,
@@ -105,8 +110,16 @@ class GeometricAttention(nn.Module):
     def forward(self, s, affine: Affine3D, affine_mask, sequence_id=None,
                 chain_id=None):
         B, L, _ = s.shape
+        tp = self.tp
         H, M = self.v_heads, self.num_vector_messages
-        proj = self.proj(self.ln(s)).float().reshape(B, L, H, 12 + 3 * M)
+        rot_scale, dist_scale = self.rotation_scale, self.distance_scale
+        h = self.ln(s)
+        if tp is not None:
+            H //= tp.size
+            h = tp.copy(h)
+            rot_scale = tp.local(tp.copy(rot_scale))
+            dist_scale = tp.local(tp.copy(dist_scale))
+        proj = self.proj(h).float().reshape(B, L, H, 12 + 3 * M)
         # the channel order is JAX's split: qr kr qd kd value
         qr, kr, qd, kd, val = proj.split([3, 3, 3, 3, 3 * M], dim=-1)
         rot = affine.rot[:, :, None]      # (B, L, 1, 3, 3)
@@ -129,8 +142,8 @@ class GeometricAttention(nn.Module):
         qk = torch.einsum("blhc,bmhc->bhlm", qd_g, kd_g)
         dist2 = qq[..., :, None] + kk[..., None, :] - 2.0 * qk
         dist_term = dist2.clamp_min(1e-8).sqrt()
-        logits = (rot_term * F.softplus(self.rotation_scale)[:, None, None]
-                  - dist_term * F.softplus(self.distance_scale)[:, None, None])
+        logits = (rot_term * F.softplus(rot_scale)[:, None, None]
+                  - dist_term * F.softplus(dist_scale)[:, None, None])
 
         allow = affine_mask[:, None, None, :]  # a key must have a frame
         for ids in (sequence_id, chain_id):
@@ -143,6 +156,8 @@ class GeometricAttention(nn.Module):
         o_local = torch.einsum("blhji,blhmj->blhmi", rot,
                                o_g.reshape(B, L, H, M, 3))
         out = self.out(o_local.reshape(B, L, H * M * 3))
+        if tp is not None:
+            out = tp.reduce(out)
         if self.mask_and_zero_frameless:
             out = torch.where(affine_mask[..., None], out, 0.0)
         return out

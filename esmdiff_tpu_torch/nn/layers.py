@@ -101,7 +101,12 @@ class MultiHeadAttention(nn.Module):
     outputs carry gradients (``kernel_op``).
     quant: "int8" = the qkv and output projections are ``QuantDense`` and
     ``ln`` owns no scale; it raises with ``qkv_backend="fused"``, as JAX.
+    tp: set by ``parallel.tp.shard_modules`` when the projections hold this
+    rank's heads only: q_ln/k_ln then sum their statistics over the model
+    axis and the output is summed over it.
     """
+
+    tp = None
 
     def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16,
                  attn_backend: str = "auto", qkv_backend: str = "xla",
@@ -132,18 +137,25 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, rot_cos, rot_sin, mask=None, lengths=None):
         B, L, _ = x.shape
         dh = self.d_model // self.n_heads
+        tp = self.tp
+        heads = self.n_heads if tp is None else self.n_heads // tp.size
+        d = heads * dh
         if self.qkv_backend == "fused":
             # weight.t() is a (D, 3D) view: the kernel reads it in place
             qkv = kernel_op(qkv_ops.FusedLnQkvFunction, qkv_ops.fused_ln_qkv)(
                 x, self.ln.scale, self.qkv.weight.t().to(self.qkv.dtype),
                 self.q_ln.scale, self.k_ln.scale)
             q, k, v = qkv.split(self.d_model, dim=-1)
-        else:
+        elif tp is None:
             q, k, v = self.qkv(self.ln(x)).split(self.d_model, dim=-1)
             q, k = self.q_ln(q), self.k_ln(k)
-        q = q.reshape(B, L, self.n_heads, dh)
-        k = k.reshape(B, L, self.n_heads, dh)
-        v = v.reshape(B, L, self.n_heads, dh)
+        else:
+            q, k, v = self.qkv(tp.copy(self.ln(x))).split(d, dim=-1)
+            q = tp.layer_norm(q, self.q_ln.scale)
+            k = tp.layer_norm(k, self.k_ln.scale)
+        q = q.reshape(B, L, heads, dh)
+        k = k.reshape(B, L, heads, dh)
+        v = v.reshape(B, L, heads, dh)
         if self.attn_backend == "small" and mask is None:
             o = kernel_op(small_ops.SmallAttentionFunction,
                           small_ops.small_attention)(q, k, v, rot_cos,
@@ -155,13 +167,17 @@ class MultiHeadAttention(nn.Module):
                 q, k, v, mask=mask, lengths=lengths,
                 backend="xla" if self.attn_backend == "small"
                 else self.attn_backend)
-        return self.out(o.reshape(B, L, self.d_model))
+        out = self.out(o.reshape(B, L, d))
+        return out if tp is None else tp.reduce(out)
 
 
 class SwiGLUFFN(nn.Module):
     """Pre-norm SwiGLU MLP: LN -> Dense(d, 2h) -> silu(a)*b -> Dense(h, d);
     with ``quant="int8"`` both projections are ``QuantDense`` and ``ln``
-    owns no scale."""
+    owns no scale.  tp: as ``MultiHeadAttention``'s (this rank's hidden
+    units of ``a`` and of ``b``; the output summed over the model axis)."""
+
+    tp = None
 
     def __init__(self, d_model: int, hidden: int, dtype=torch.bfloat16,
                  quant: str = "none"):
@@ -173,8 +189,12 @@ class SwiGLUFFN(nn.Module):
         self.down = proj(hidden, d_model, use_bias=False, dtype=dtype)
 
     def forward(self, x):
-        a, b = self.up(self.ln(x)).chunk(2, dim=-1)
-        return self.down(F.silu(a) * b)
+        h = self.ln(x)
+        if self.tp is not None:
+            h = self.tp.copy(h)
+        a, b = self.up(h).chunk(2, dim=-1)
+        out = self.down(F.silu(a) * b)
+        return out if self.tp is None else self.tp.reduce(out)
 
 
 def swiglu_hidden_dim(d_model: int, expansion_ratio: float = 8 / 3) -> int:

@@ -116,14 +116,15 @@ class TrainerConfig:
     # >0 = capture a torch.profiler trace of that many train steps to
     # <ckpt_dir>/profile (a Chrome trace)
     profile_steps: int = 0
-    multihost: bool = False       # multi-host launch (raises: one device)
-    # sharding strategy (reference configs/trainer/: ddp.yaml = ddp,
-    # deepspeed.yaml stage 2 = zero2; fsdp, dpNxtpM, ppS raise: the port
-    # trains on one device).
-    # On one device ddp and zero2 are the plain step.
+    # multi-host launch: torchrun across nodes (raises without its
+    # environment)
+    multihost: bool = False
+    # sharding strategy over torchrun's ranks (reference
+    # configs/trainer/: ddp.yaml = ddp, deepspeed.yaml stage 2 = zero2;
+    # fsdp, dpNxtpM, tpM; ppS and dpNxppS raise: not ported yet).  With no
+    # process group every strategy but tpM (M > 1) is the one-device step.
     strategy: str = "zero2"
-    # GPipe microbatch count for the pp strategies (0 = auto: smallest
-    # divisor of the per-data-slice batch >= the stage count)
+    # GPipe microbatch count for the pp strategies (not ported yet)
     pp_microbatches: int = 0
     # experiment-tracking backend: csv (built-in) | tensorboard | wandb
     # (reference configs/logger/, train.yaml:10)

@@ -11,12 +11,20 @@ written beside it, from which ``convert/checkpoints.py`` rebuilds the
 model; a CLM/JLM run's ``params.pt`` holds the net's own state dict
 (``load_ar_params`` loads it).
 
-One device (the card unless the caller asks for the CPU).
-``model.pretrained_ckpt`` fills the trunk from a reference PyTorch file
-after the seeded init (``init_params``); ``model.param_dtype=bfloat16``
-holds the MDLM's parameters, gradients and AdamW moments in bfloat16;
-``model.remat_policy`` picks what the trunk's remat keeps.  Raising:
-multi-device strategies and multihost.
+One process per card (the card unless the caller asks for the CPU):
+under torchrun the group opens from its environment
+(``parallel/mesh.py``) and ``trainer.strategy`` lays the model out over it
+(``train/state.py::distribute``); every rank builds the same global batch
+and the same draws and keeps its rows, so N ranks give the numbers of
+one.  Rank 0 logs and writes the checkpoints, in the one-device layout;
+the val loss is summed over the ranks.  ``trainer.multihost`` is the same
+launch across nodes and raises without torchrun's environment.  The CLM
+and JLM losses are their rows' own means, so these tasks train on one
+data rank only.  ``model.pretrained_ckpt`` fills the trunk from a
+reference PyTorch file after the seeded init (``init_params``);
+``model.param_dtype=bfloat16`` holds the MDLM's parameters, gradients and
+AdamW moments in bfloat16; ``model.remat_policy`` picks what the trunk's
+remat keeps.
 """
 
 from __future__ import annotations
@@ -43,16 +51,15 @@ from esmdiff_tpu_torch.models.esm3 import ESM3, ESM3Config, esm3_tiny
 from esmdiff_tpu_torch.models.jlm import JLM, JLMConfig
 from esmdiff_tpu_torch.nn.layers import LayerNorm, TimestepEmbedder
 from esmdiff_tpu_torch.nn.layers import init_params as init_module_params
+from esmdiff_tpu_torch.parallel import mesh as pmesh
 from esmdiff_tpu_torch.utils.checkpoint import CheckpointManager
-from esmdiff_tpu_torch.utils.logging import MetricLogger, make_sink
+from esmdiff_tpu_torch.utils.logging import (MetricLogger, is_main_process,
+                                             make_sink, start_profiler,
+                                             stop_profiler)
 
 from . import data as data_mod
 from . import state as tstate
 from .config import TrainConfig, save_config
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet")
 
 
 def trunk_config(cfg: TrainConfig) -> ESM3Config:
@@ -173,7 +180,7 @@ def _clm_loss(model: CLM):
     embeddings (reference model.py:289-313); labels -100 where
     mask <= 0.5."""
 
-    def loss_fn(batch, draws=None, training=True):
+    def loss_fn(batch, draws=None, training=True, shard=None):
         mask = batch["mask"]
         labels = torch.where(mask > 0.5, batch["structure_tokens"], -100)
         out = model(inputs_embeds=batch["embeddings"], labels=labels,
@@ -187,7 +194,7 @@ def _jlm_loss(model: JLM):
     """JLM objective: shift-by-one CE over both segments of the joint
     (sequence, structure) stream (reference model.py:247-287)."""
 
-    def loss_fn(batch, draws=None, training=True):
+    def loss_fn(batch, draws=None, training=True, shard=None):
         mask = batch["mask"]
         seq_labels = torch.where(mask > 0.5, batch["sequence_tokens"], -100)
         str_labels = torch.where(mask > 0.5, batch["structure_tokens"], -100)
@@ -205,24 +212,26 @@ def _jlm_loss(model: JLM):
 
 def build_task(cfg: TrainConfig, device=None,
                emb_dim: Optional[int] = None):
-    """task_name -> (model, loss_fn(batch, draws, training=True)).
+    """task_name -> (model, loss_fn(batch, draws, training=True,
+    shard=None)).
 
     The model is the MDLM (``mdlm``), or the CLM/JLM net fed embeddings of
     width ``emb_dim`` (default ESM3's), with uninitialised float32
     parameters (``init_task``).  The batch is a dict of device tensors; a
     packed MDLM batch (``data.pack_len`` > 0) carries ``segment_ids`` and
-    takes ``MDLM.loss_packed``.  The AR losses draw nothing."""
+    takes ``MDLM.loss_packed``; ``shard`` names its rows of the global
+    batch (``MDLM.loss``).  The AR losses draw nothing."""
     task = cfg.task_name
     D = emb_dim if emb_dim is not None else C.ESM3_D_MODEL
     if task == "mdlm":
         mdlm = build_mdlm(cfg, device)
         S = data_mod.resolve_pack_segments(cfg.data)
 
-        def mdlm_loss(batch, draws, training=True):
+        def mdlm_loss(batch, draws, training=True, shard=None):
             if "segment_ids" in batch:
                 return mdlm.loss_packed(batch, draws, max_segments=S,
-                                        training=training)
-            return mdlm.loss(batch, draws, training=training)
+                                        training=training, shard=shard)
+            return mdlm.loss(batch, draws, training=training, shard=shard)
 
         return mdlm, mdlm_loss
     if task == "clm":
@@ -276,15 +285,37 @@ def to_device(batch: dict, device) -> dict:
 
 
 def train(cfg: TrainConfig, device=None) -> dict:
-    t0 = time.time()
-    dev = resolve_device(device)
-    run_dir = Path(cfg.trainer.ckpt_dir)
-    run_dir.mkdir(parents=True, exist_ok=True)
-    # the composed config beside the run: checkpoints are self-describing
-    save_config(cfg, run_dir / "config.yaml")
-    if cfg.trainer.multihost:
-        _not_ported("trainer.multihost")
+    """Train ``cfg`` on ``device``; under torchrun (or an open process
+    group) this rank's part of ``trainer.strategy``'s layout."""
+    if cfg.trainer.multihost and not (pmesh.in_torchrun()
+                                      or torch.distributed.is_initialized()):
+        raise RuntimeError(
+            "trainer.multihost needs torchrun's environment (RANK, "
+            "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): launch "
+            "with torchrun --nnodes N --nproc_per_node M -m "
+            "esmdiff_tpu_torch.cli.train ...")
     tstate.check_strategy(cfg.trainer.strategy)
+    dev = resolve_device(pmesh.local_device(device))
+    opened = pmesh.init_from_env(dev)
+    try:
+        return _train(cfg, dev)
+    finally:
+        pmesh.close(opened)
+
+
+def _train(cfg: TrainConfig, dev: torch.device) -> dict:
+    t0 = time.time()
+    main = is_main_process()
+    say = print if main else (lambda *a, **k: None)
+    run_dir = Path(cfg.trainer.ckpt_dir)
+    if main:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        # the composed config beside the run: checkpoints are
+        # self-describing
+        save_config(cfg, run_dir / "config.yaml")
+    if torch.distributed.is_initialized():
+        say(f"[dist] rank {pmesh.rank()}/{pmesh.world()} on {dev}, "
+            f"strategy={cfg.trainer.strategy}")
     if cfg.task_name in ("clm", "jlm"):
         # the AR heads consume the dump's per-residue ESM3 embeddings
         cfg.data.with_embeddings = True
@@ -294,12 +325,12 @@ def train(cfg: TrainConfig, device=None) -> dict:
 
     dataset = data_mod.EncodingDataset(cfg.data, training=True)
     train_split, val_split = data_mod.train_val_split(dataset, cfg.data)
-    print(f"[data] {len(train_split.indices)} train / "
-          f"{len(val_split.indices)} val chains from {cfg.data.path}")
+    say(f"[data] {len(train_split.indices)} train / "
+        f"{len(val_split.indices)} val chains from {cfg.data.path}")
     if len(val_split.indices) == 0:
-        print("[data] WARNING: empty val split — val/loss will be nan and "
-              "checkpoint selection has no signal (corpus too small for "
-              "the 0.95/0.05 split)")
+        say("[data] WARNING: empty val split — val/loss will be nan and "
+            "checkpoint selection has no signal (corpus too small for "
+            "the 0.95/0.05 split)")
 
     emb_dim = None
     if cfg.data.with_embeddings:
@@ -314,17 +345,27 @@ def train(cfg: TrainConfig, device=None) -> dict:
     init_task(task_model, cfg)
     model = task_modules(task_model)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[model] task={cfg.task_name} {n_params/1e6:.1f}M params on {dev}")
+    say(f"[model] task={cfg.task_name} {n_params/1e6:.1f}M params on {dev}")
+    if cfg.task_name != "mdlm" and torch.distributed.is_initialized() \
+            and pmesh.world() > 1:
+        raise NotImplementedError(
+            f"task_name={cfg.task_name} across {pmesh.world()} ranks is "
+            f"not ported yet: the AR losses are means over their own rows")
+    loss_fn, layout = tstate.distribute(
+        model, loss_fn, cfg.trainer.strategy, cfg.data.batch_size, dev,
+        blocks=(task_model.net.transformer.blocks
+                if isinstance(task_model, MDLM) else ()))
     optimizer = tstate.make_optimizer(
         model.parameters(), lr=cfg.optim.lr,
         weight_decay=cfg.optim.weight_decay,
-        warmup_steps=cfg.optim.warmup_steps, grad_clip=cfg.optim.grad_clip)
-    state = tstate.create_train_state(model, optimizer)
+        warmup_steps=cfg.optim.warmup_steps, grad_clip=cfg.optim.grad_clip,
+        layout=layout)
+    state = tstate.create_train_state(model, optimizer, layout)
 
     ckpt = CheckpointManager(run_dir / "ckpt",
-                             save_top_k=cfg.trainer.save_top_k)
+                             save_top_k=cfg.trainer.save_top_k, writer=main)
     logger = MetricLogger(run_dir / "metrics.csv")
-    if cfg.trainer.logger not in ("", "csv", "none"):
+    if main and cfg.trainer.logger not in ("", "csv", "none"):
         logger.add_sink(make_sink(
             cfg.trainer.logger, run_dir / "tb", run_name=cfg.trainer.run_name,
             config={"n_params": int(n_params),
@@ -333,7 +374,7 @@ def train(cfg: TrainConfig, device=None) -> dict:
 
     if cfg.trainer.resume:
         state = ckpt.restore(cfg.trainer.resume, state)
-        print(f"[resume] from {cfg.trainer.resume} at step {state.step}")
+        say(f"[resume] from {cfg.trainer.resume} at step {state.step}")
 
     best_val = float("inf")
     epochs_no_improve = 0
@@ -370,15 +411,17 @@ def train(cfg: TrainConfig, device=None) -> dict:
             for batch in epoch_batches:
                 if n_seen >= limit:
                     break
-                batch = to_device(batch, dev)
+                batch = to_device(pmesh.shard_batch(batch, layout.shard),
+                                  dev)
                 # profiler window: local steps [1, profile_steps] (local
                 # step 0 pays the first-use costs)
-                if cfg.trainer.profile_steps > 0 and local_step == 1:
-                    profiler = _start_profiler(dev)
+                if cfg.trainer.profile_steps > 0 and local_step == 1 \
+                        and main:
+                    profiler = start_profiler(dev)
                 metrics = tstate.train_step(state, loss_fn, batch, draws)
                 if profiler is not None and \
                         local_step >= cfg.trainer.profile_steps:
-                    _stop_profiler(profiler, run_dir / "profile", local_step)
+                    _stop(profiler, run_dir, local_step)
                     profiler = None
                 local_step += 1
                 n_seen += 1
@@ -387,8 +430,8 @@ def train(cfg: TrainConfig, device=None) -> dict:
                     m = {k: float(v) for k, v in metrics.items()}
                     m.update(step=state.step, epoch=epoch, split="train")
                     logger.log(m)
-                    print(f"[train] step {state.step} epoch {epoch} "
-                          f"loss {m['loss']:.4f}")
+                    say(f"[train] step {state.step} epoch {epoch} "
+                        f"loss {m['loss']:.4f}")
                 if cfg.trainer.fast_dev_run:
                     break
 
@@ -400,14 +443,15 @@ def train(cfg: TrainConfig, device=None) -> dict:
                                               drop_last=False):
                     out = tstate.eval_step(
                         lambda b, d: loss_fn(b, d, training=False),
-                        to_device(batch, dev), draws)
+                        to_device(pmesh.shard_batch(batch, layout.shard),
+                                  dev), draws, layout)
                     losses.append(float(out["loss"]))
                     if cfg.trainer.fast_dev_run:
                         break
                 val_loss = float(np.mean(losses)) if losses else float("nan")
                 logger.log({"step": state.step, "epoch": epoch,
                             "split": "val", "loss": val_loss})
-                print(f"[val] epoch {epoch} loss {val_loss:.4f}")
+                say(f"[val] epoch {epoch} loss {val_loss:.4f}")
                 if val_loss < best_val:
                     best_val = val_loss
                     epochs_no_improve = 0
@@ -416,31 +460,20 @@ def train(cfg: TrainConfig, device=None) -> dict:
                     epochs_no_improve += 1
                     if epochs_no_improve >= \
                             cfg.trainer.early_stopping_patience:
-                        print(f"[early-stop] no val improvement for "
-                              f"{epochs_no_improve} epochs")
+                        say(f"[early-stop] no val improvement for "
+                            f"{epochs_no_improve} epochs")
                         stop = True
             if cfg.trainer.fast_dev_run:
                 break
         if profiler is not None:  # the run ended inside the trace window
-            _stop_profiler(profiler, run_dir / "profile", local_step)
+            _stop(profiler, run_dir, local_step)
     wall = time.time() - t0
-    print(f"[done] best val/loss {best_val:.4f} in {wall:.1f}s "
-          f"({state.step} steps)")
+    say(f"[done] best val/loss {best_val:.4f} in {wall:.1f}s "
+        f"({state.step} steps)")
     return {"best_val_loss": best_val, "steps": state.step,
             "wall_s": wall, "ckpt_dir": str(run_dir / "ckpt")}
 
 
-def _start_profiler(device):
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
-    prof.__enter__()
-    return prof
-
-
-def _stop_profiler(prof, out_dir: Path, local_step: int) -> None:
-    prof.__exit__(None, None, None)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / "trace.json"))
-    print(f"[profile] trace of local steps 1..{local_step} -> {out_dir}")
+def _stop(profiler, run_dir: Path, local_step: int) -> None:
+    out = stop_profiler(profiler, run_dir / "profile").parent
+    print(f"[profile] trace of local steps 1..{local_step} -> {out}")

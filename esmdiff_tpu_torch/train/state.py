@@ -1,10 +1,30 @@
-"""Train state and the training step on one device.
+"""Train state, the training step, and the strategies that spread it over
+ranks.
 
 Port of ``esmdiff_tpu/train/state.py``: AdamW with optax's semantics, a
 state holding the step count, the trainable modules and the optimizer, and
-the train and eval steps.  The JAX package's strategies shard the state
-over a mesh; on one device ``ddp`` and ``zero2`` are the plain step, and
-the others (``fsdp``, ``dpNxtpM``, ``ppS``) raise.
+the train and eval steps.  ``distribute`` lays a model out by
+``trainer.strategy`` over the ranks of an open process group
+(``parallel/mesh.py``), one process per card:
+
+  * ``ddp``: ``DistributedDataParallel``, everything replicated;
+  * ``zero2``: DDP with ``ZeroRedundancyOptimizer`` over the port's
+    ``AdamW``: moments sharded, parameters and gradients replicated;
+  * ``fsdp``: FSDP2's ``fully_shard`` (``parallel/fsdp.py``): parameters,
+    gradients and moments sharded;
+  * ``dpNxtpM`` / ``tpM``: the projections split over the model axis of a
+    (data, model) mesh (``parallel/tp.py``; at M = 1 each rank holds them
+    whole and runs the same split modules over a model group of one), DDP
+    over the data axis (the moments lie as their parameters do: JAX also
+    shards the replicated leaves' moments over ``data``);
+  * ``ppS`` / ``dpNxppS`` raise: pipeline parallelism is not ported yet.
+With no process group a strategy is the one-device step (``tpM`` with
+M > 1 raises: it needs M ranks).
+
+The loss of a rank's rows divides by the global batch's counts
+(``mesh.RowShard``) and is scaled by the data world before the gradient
+average, so the gradient is the global batch's; the reported loss and
+breakdown are summed over the data axis.
 
 optax semantics kept where PyTorch's differ:
   - ``linear_schedule(0, lr, warmup_steps)``, or the VQ-VAE trainer's
@@ -12,7 +32,9 @@ optax semantics kept where PyTorch's differ:
     updates already made, so the first update has lr 0;
   - ``clip_by_global_norm(max)`` scales by max / ||g|| only when
     ||g|| >= max (``clip_grad_norm_`` adds 1e-6 to the norm), with the
-    norm and the scaling in the gradients' dtype;
+    norm and the scaling in the gradients' dtype; a sharded gradient's
+    float32 sum of squares is summed over its shards before it is
+    rounded;
   - ``adamw`` with the moments in the parameter dtype (bfloat16 moments
     for bfloat16 parameters, as optax keeps ``mu``/``nu``), and in a
     bfloat16 parameter optax's order op by op (``AdamW``): the decay is
@@ -20,19 +42,27 @@ optax semantics kept where PyTorch's differ:
     ``torch.optim.AdamW`` first multiplies the parameter by 1 - lr * wd,
     which in bfloat16 rounds the decay away;
   - every parameter is decayed and stepped on every update, the ones that
-    got no gradient too (their gradient is zero, as in ``jax.grad``).
+    got no gradient too (their gradient is zero, as in ``jax.grad``; DDP
+    is told to expect such parameters).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
-STRATEGIES = ("ddp", "zero2")
+from esmdiff_tpu_torch.parallel import fsdp as pfsdp
+from esmdiff_tpu_torch.parallel import mesh as pmesh
+from esmdiff_tpu_torch.parallel import tp as ptp
+from esmdiff_tpu_torch.utils.logging import is_main_process
+
+STRATEGIES = ("ddp", "zero2", "fsdp", "dpNxtpM", "tpM")
 # parameter elements one AdamW update call takes at once: its temporaries
 # (up to three of the chunk's size) stay small beside the state
 UPDATE_CHUNK = 1 << 26
@@ -99,8 +129,10 @@ class AdamW(torch.optim.Optimizer):
                     st["exp_avg_sq"] = torch.zeros_like(p)
                 st["step"] += 1
                 grad = p.grad if p.grad is not None else torch.zeros_like(p)
+                # a sharded parameter steps its own shard
                 by_dtype.setdefault((p.dtype, int(st["step"])), []).append(
-                    (p, grad, st["exp_avg"], st["exp_avg_sq"]))
+                    tuple(pfsdp.local(t) for t in (
+                        p, grad, st["exp_avg"], st["exp_avg_sq"])))
             for (dtype, count), items in by_dtype.items():
                 update = (_adamw_float32 if dtype == torch.float32
                           else _adamw_optax_order)
@@ -182,14 +214,56 @@ class Optimizer:
         return self.lr * min(count, self.warmup_steps) / self.warmup_steps
 
 
+@dataclasses.dataclass
+class Layout:
+    """How a train state lies over the ranks (``distribute``): the rows of
+    the global batch this rank holds (None: all of them, no group), the
+    model axis of tensor parallelism, whether FSDP shards the parameters,
+    whether ZeRO shards the moments."""
+
+    shard: Optional[pmesh.RowShard] = None
+    tp: Optional[ptp.TPGroup] = None
+    fsdp_group: object = None
+    zero_group: object = None
+
+    @property
+    def data_world(self) -> int:
+        return 1 if self.shard is None else self.shard.world
+
+    def norm_group(self, p):
+        """The group over which ``p``'s gradient is split (its partial sums
+        of squares are summed over it), or None."""
+        if self.fsdp_group is not None and pfsdp.is_sharded(p):
+            return self.fsdp_group
+        if self.tp is not None and ptp.tp_spec(p) is not None:
+            return self.tp.group
+        return None
+
+    def reduce(self, metrics: dict) -> dict:
+        """Every scalar metric of a rank's rows summed over the data axis:
+        the global batch's value."""
+        if self.data_world == 1:
+            return metrics
+        return {k: self.shard.sum(v) if v.dim() == 0
+                and v.is_floating_point() else v for k, v in metrics.items()}
+
+
 def make_optimizer(params, lr: float = 1e-5, weight_decay: float = 0.01,
                    warmup_steps: int = 0, grad_clip: Optional[float] = None,
-                   schedule: Optional[Callable[[int], float]] = None
-                   ) -> Optimizer:
+                   schedule: Optional[Callable[[int], float]] = None,
+                   layout: Optional[Layout] = None) -> Optimizer:
     """AdamW over ``params`` with decay on every parameter (optax.adamw with
-    no mask)."""
-    adamw = AdamW(list(params), lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                  weight_decay=weight_decay)
+    no mask); under ``zero2`` with a group, a ``ZeroRedundancyOptimizer``
+    whose ranks each step the AdamW of their partition."""
+    kw = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    if layout is not None and layout.zero_group is not None:
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+
+        adamw = ZeroRedundancyOptimizer(
+            list(params), optimizer_class=AdamW,
+            process_group=layout.zero_group, **kw)
+    else:
+        adamw = AdamW(list(params), **kw)
     return Optimizer(adamw, lr, warmup_steps, grad_clip, schedule)
 
 
@@ -198,32 +272,121 @@ class TrainState:
     step: int
     model: nn.Module
     optimizer: Optimizer
+    layout: Layout = dataclasses.field(default_factory=Layout)
 
 
-def create_train_state(model: nn.Module, optimizer: Optimizer) -> TrainState:
+def create_train_state(model: nn.Module, optimizer: Optimizer,
+                       layout: Optional[Layout] = None) -> TrainState:
     """The state at step 0, every parameter's gradient allocated (zero), so
     that each update steps every parameter."""
     for p in model.parameters():
         p.grad = torch.zeros_like(p)
-    return TrainState(step=0, model=model, optimizer=optimizer)
+    return TrainState(step=0, model=model, optimizer=optimizer,
+                      layout=layout or Layout())
 
 
 def check_strategy(strategy: str) -> None:
-    if strategy not in STRATEGIES:
+    """Raise on a strategy the port does not run."""
+    if re.fullmatch(r"(dp\d+x)?pp\d+", strategy):
         raise NotImplementedError(
-            f"trainer.strategy={strategy!r} is not ported yet (the port "
-            f"trains on one device: {' | '.join(STRATEGIES)})")
+            f"trainer.strategy={strategy!r} (pipeline parallelism) is not "
+            f"ported yet: it is the next slice of the port")
+    if strategy in ("ddp", "zero2", "fsdp") or \
+            ptp.parse_tp_strategy(strategy) is not None:
+        return
+    raise ValueError(f"unknown strategy: {strategy!r} "
+                     f"({' | '.join(STRATEGIES)})")
 
 
-def global_norm(tensors) -> torch.Tensor:
+class _LossModule(nn.Module):
+    """The module a distributed loss runs through: DDP's reducer and
+    FSDP's root hooks fire on its forward."""
+
+    def __init__(self, model: nn.Module, loss_fn: Callable):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, batch, draws, training: bool = True):
+        return self.loss_fn(batch, draws, training=training)
+
+
+def distribute(model: nn.Module, loss_fn: Callable, strategy: str,
+               batch_size: int, device, blocks=()):
+    """Lay ``model`` out by ``strategy`` over the open process group.
+
+    loss_fn(batch, draws, training=True, shard=None) -> (loss, breakdown)
+    on this rank's rows of a global batch of ``batch_size`` rows.
+    blocks: the trunk blocks FSDP makes units of.  Returns (loss_fn of
+    (batch, draws, training=True) through the wrapped model, Layout).
+    Without a group: the one-device loss and an empty Layout."""
+    check_strategy(strategy)
+    shape = ptp.parse_tp_strategy(strategy)
+    if not dist.is_initialized():
+        if shape is not None and shape != (1, 1):
+            raise ValueError(f"trainer.strategy={strategy!r} needs "
+                             f"{shape[0] * shape[1]} ranks: launch it with "
+                             f"torchrun")
+        return (lambda b, d, training=True: loss_fn(b, d, training=training),
+                Layout())
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.nn.parallel import DistributedDataParallel
+
+    dev = torch.device(device)
+    world = dist.get_world_size()
+    n_data, n_model = shape if shape is not None else (world, 1)
+    if n_data * n_model != world:
+        raise ValueError(f"trainer.strategy={strategy!r} needs "
+                         f"{n_data * n_model} ranks; the group has {world}")
+    if shape is not None:
+        # dpNxtpM builds its (data, model) mesh and splits the projections
+        # at any M, M = 1 too: the same modules and collectives
+        dmesh = init_device_mesh(dev.type, (n_data, n_model),
+                                 mesh_dim_names=(ptp.DATA_AXIS,
+                                                 ptp.MODEL_AXIS))
+        data_group, data_index = (dmesh.get_group(ptp.DATA_AXIS),
+                                  dmesh.get_local_rank(ptp.DATA_AXIS))
+    else:
+        dmesh = init_device_mesh(dev.type, (world,),
+                                 mesh_dim_names=(ptp.DATA_AXIS,))
+        data_group, data_index = dmesh.get_group(), dmesh.get_local_rank()
+    shard = pmesh.data_shard(batch_size, data_index, n_data, data_group)
+    layout = Layout(shard=shard)
+    if shape is not None:
+        layout.tp = ptp.TPGroup(dmesh.get_group(ptp.MODEL_AXIS))
+        ptp.shard_modules(model, layout.tp)
+
+    def sharded_loss(b, d, training=True):
+        return loss_fn(b, d, training=training, shard=shard)
+
+    root = _LossModule(model, sharded_loss)
+    if strategy == "fsdp":
+        pfsdp.shard_model(root, blocks, dmesh)
+        layout.fsdp_group = data_group
+        wrapped = root
+    else:
+        wrapped = DistributedDataParallel(
+            root, process_group=data_group,
+            device_ids=[dev.index] if dev.type == "cuda" else None,
+            find_unused_parameters=True)
+        if strategy == "zero2":
+            layout.zero_group = data_group
+    return (lambda b, d, training=True: wrapped(b, d, training=training),
+            layout)
+
+
+def global_norm(tensors, groups=None) -> torch.Tensor:
     """optax's ``global_norm``: each tensor's sum of squares (accumulated in
     float32) rounded to its dtype, their sum in the tensors' dtype when
     they share one, else in float32 (as JAX promotes a mixed sum), and its
-    square root."""
+    square root.  groups: per tensor, the group over which it is split
+    (its float32 partial sum is summed over the group before rounding),
+    or None."""
     dtypes = {t.dtype for t in tensors}
     out = dtypes.pop() if len(dtypes) == 1 else torch.float32
-    squares = [torch.sum(t.float() ** 2).to(t.dtype).to(out)
-               for t in tensors]
+    groups = groups or [None] * len(tensors)
+    squares = [pmesh.all_sum(torch.sum(t.float() ** 2), g).to(t.dtype)
+               .to(out) for t, g in zip(tensors, groups)]
     return torch.sqrt(torch.stack(squares).sum())
 
 
@@ -233,15 +396,19 @@ def train_step(state: TrainState, loss_fn: Callable, batch: dict,
 
     loss_fn(batch, draws) -> (loss, breakdown dict).  Returns the breakdown
     with ``loss`` and ``grad_norm`` (the global norm of the raw gradients,
-    before clipping), all as device tensors."""
-    opt = state.optimizer
+    before clipping), all as device tensors (the global batch's values
+    under a ``distribute`` layout)."""
+    opt, layout = state.optimizer, state.layout
     params = [p for g in opt.adamw.param_groups for p in g["params"]]
     opt.adamw.zero_grad(set_to_none=False)
     with torch.enable_grad():
         loss, breakdown = loss_fn(batch, draws)
-        loss.backward()
-    grads = [p.grad for p in params]
-    grad_norm = global_norm(grads)
+        # the gradient average over the data axis, times its size: the
+        # sum of the ranks' parts of the global loss
+        (loss * layout.data_world if layout.data_world > 1
+         else loss).backward()
+    grads = [pfsdp.local(p.grad) for p in params]
+    grad_norm = global_norm(grads, [layout.norm_group(p) for p in params])
     if opt.grad_clip and not grad_norm < opt.grad_clip:
         # optax: (g / norm) * max, each in the gradient's dtype
         for g in grads:
@@ -252,13 +419,94 @@ def train_step(state: TrainState, loss_fn: Callable, batch: dict,
     state.step += 1
     metrics = {k: v.detach() for k, v in breakdown.items()}
     metrics["loss"] = loss.detach()
+    metrics = layout.reduce(metrics)
     metrics["grad_norm"] = grad_norm
     return metrics
 
 
 @torch.no_grad()
-def eval_step(loss_fn: Callable, batch: dict, draws) -> dict:
+def eval_step(loss_fn: Callable, batch: dict, draws,
+              layout: Optional[Layout] = None) -> dict:
     loss, breakdown = loss_fn(batch, draws)
     metrics = dict(breakdown)
     metrics["loss"] = loss
-    return metrics
+    return metrics if layout is None else layout.reduce(metrics)
+
+
+# -- checkpoints in the one-device layout ------------------------------------
+
+def _params(state: TrainState):
+    return [p for g in state.optimizer.adamw.param_groups
+            for p in g["params"]]
+
+
+def full_model_state(state: TrainState) -> dict:
+    """The model's state dict with whole tensors (every rank takes part;
+    the values are meant for rank 0's writer)."""
+    layout = state.layout
+    if layout.fsdp_group is not None:
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions, get_model_state_dict)
+
+        return get_model_state_dict(state.model, options=StateDictOptions(
+            full_state_dict=True, cpu_offload=True))
+    specs = {n: ptp.tp_spec(p) for n, p in state.model.named_parameters()}
+    return {n: ptp.gather_full(t, specs.get(n), layout.tp)
+            for n, t in state.model.state_dict().items()}
+
+
+def full_optimizer_state(state: TrainState) -> Optional[dict]:
+    """The optimizer's state dict in the one-device layout (as the AdamW
+    of the unsplit model holds it) on rank 0, None on the others; every
+    rank takes part."""
+    layout, adamw = state.layout, state.optimizer.adamw
+    if layout.zero_group is not None:
+        adamw.consolidate_state_dict(to=0)
+        return adamw.state_dict() if is_main_process() else None
+    sd = adamw.state_dict()
+    if layout.fsdp_group is None and layout.tp is None:
+        return sd
+    for i, p in enumerate(_params(state)):
+        if i not in sd["state"]:
+            continue
+        # state_dict() holds the live state's dicts: replace, not write
+        st = sd["state"][i] = dict(sd["state"][i])
+        for k in ("exp_avg", "exp_avg_sq"):
+            if k in st:
+                full = pfsdp.full_tensor(st[k])
+                st[k] = ptp.gather_full(full, ptp.tp_spec(p), layout.tp)
+    return sd
+
+
+def load_full_state(state: TrainState, params: dict,
+                    optimizer_sd: dict) -> None:
+    """Load a one-device-layout checkpoint (``full_model_state``,
+    ``full_optimizer_state``) into ``state``, each rank keeping its
+    part."""
+    layout, adamw = state.layout, state.optimizer.adamw
+    if layout.fsdp_group is None and layout.tp is None:
+        state.model.load_state_dict(params, strict=True)
+        adamw.load_state_dict(optimizer_sd)
+        return
+    named = dict(state.model.named_parameters())
+    if set(named) != set(params):
+        raise KeyError(f"checkpoint keys differ from the model's: "
+                       f"{sorted(set(named) ^ set(params))[:4]}")
+
+    def place(full, p):
+        full = ptp.local_part(full, ptp.tp_spec(p), layout.tp)
+        return pfsdp.shard_like(full.to(p.dtype), p)
+
+    with torch.no_grad():
+        for name, p in named.items():
+            pfsdp.local(p).copy_(pfsdp.local(place(params[name], p)))
+    for i, p in enumerate(_params(state)):
+        st = optimizer_sd["state"].get(i)
+        if st is None:
+            continue
+        adamw.state[p] = {
+            "step": st["step"].clone().cpu(),
+            "exp_avg": place(st["exp_avg"], p),
+            "exp_avg_sq": place(st["exp_avg_sq"], p)}
+    for group, saved in zip(adamw.param_groups, optimizer_sd["param_groups"]):
+        group.update({k: v for k, v in saved.items() if k != "params"})

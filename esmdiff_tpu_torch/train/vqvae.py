@@ -17,11 +17,15 @@ al., 2017):
     standalone ``StructureTokenDecoder`` computes the training-time
     function.
 
-One device.  The corpus stays on the host; each batch is gathered (and
-augmented) with numpy and copied to the device.  One
-``np.random.RandomState(seed)`` draws in JAX's order: the batch, its
-augmentation, the restart pool's permutation (``it % 50 == 0``), then the
-restarts.  ``data_parallel`` is not ported yet.
+The corpus stays on the host; each batch is gathered (and augmented) with
+numpy and copied to the device.  One ``np.random.RandomState(seed)``
+draws in JAX's order: the batch, its augmentation, the restart pool's
+permutation (``it % 50 == 0``), then the restarts.  ``data_parallel``
+trains one process per card (``DistributedDataParallel`` under
+torchrun, ``parallel/mesh.py``): every rank draws the same global batch
+and keeps its rows, the losses divide by the global batch's counts, and
+the code usage and the restart pool are the global batch's, so N ranks
+give the numbers of one.  The batch must divide by the world size.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ from esmdiff_tpu_torch.models.vqvae import (DecoderConfig, EncoderConfig,
                                             StructureTokenDecoder,
                                             StructureTokenEncoder)
 from esmdiff_tpu_torch.nn.layers import Dense, init_params
+from esmdiff_tpu_torch.parallel import mesh as pmesh
+from esmdiff_tpu_torch.utils.logging import is_main_process
 
 from . import state as tstate
 
@@ -129,15 +135,22 @@ def init_vqvae(model: VQVAE, seed: int) -> VQVAE:
 # reconstruction losses
 # ---------------------------------------------------------------------------
 
-def drmsd_loss(pred, true, mask):
+def _count(x, shard):
+    """A loss's denominator: of the global batch under a data shard."""
+    return x if shard is None else shard.sum(x)
+
+
+def drmsd_loss(pred, true, mask, shard=None):
     """Rotation/translation-invariant reconstruction: CA pairwise-distance
     MSE + intra-residue bond terms + chirality (signed volume) tie-break.
-    pred/true (B, L, 3, 3) float32, mask (B, L) float32."""
+    pred/true (B, L, 3, 3) float32, mask (B, L) float32.  shard: the rows
+    are a data shard's (``parallel.mesh.RowShard``): each mean divides by
+    the global batch's count."""
     ca_p, ca_t = pred[:, :, 1], true[:, :, 1]
     dp = (ca_p[:, :, None] - ca_p[:, None] + 1e-8).norm(dim=-1)
     dt = (ca_t[:, :, None] - ca_t[:, None] + 1e-8).norm(dim=-1)
     m2 = mask[:, :, None] * mask[:, None]
-    l_pwd = (((dp - dt) * m2) ** 2).sum() / (m2.sum() + 1e-8)
+    l_pwd = (((dp - dt) * m2) ** 2).sum() / (_count(m2.sum(), shard) + 1e-8)
 
     def local(x):
         n, ca, c = x[:, :, 0], x[:, :, 1], x[:, :, 2]
@@ -146,7 +159,7 @@ def drmsd_loss(pred, true, mask):
                             (c - n + 1e-8).norm(dim=-1)], -1)
 
     l_loc = (((local(pred) - local(true)) * mask[..., None]) ** 2).sum() \
-        / (mask.sum() * 3 + 1e-8)
+        / (_count(mask.sum(), shard) * 3 + 1e-8)
 
     def chir(x):
         n, ca, c = x[:, :, 0], x[:, :, 1], x[:, :, 2]
@@ -155,13 +168,15 @@ def drmsd_loss(pred, true, mask):
                 * w).sum(dim=-1)
 
     mc = mask[:, 1:] * mask[:, :-1]
-    l_chi = (((chir(pred) - chir(true)) * mc) ** 2).sum() / (mc.sum() + 1e-8)
+    l_chi = (((chir(pred) - chir(true)) * mc) ** 2).sum() \
+        / (_count(mc.sum(), shard) + 1e-8)
     return l_pwd + l_loc + 0.1 * l_chi
 
 
-def kabsch_huber_loss(pred, true, mask, delta: float = 4.0):
+def kabsch_huber_loss(pred, true, mask, delta: float = 4.0, shard=None):
     """Per-sample Kabsch-align TRUE onto PRED (rotation and means
-    detached) and take the masked Huber over all backbone atoms."""
+    detached) and take the masked Huber over all backbone atoms (shard: as
+    ``drmsd_loss``'s)."""
     ca_p, ca_t = pred[:, :, 1], true[:, :, 1]
     w = mask[:, :, None]
     n = mask.sum(dim=1)[:, None] + 1e-6
@@ -179,7 +194,8 @@ def kabsch_huber_loss(pred, true, mask, delta: float = 4.0):
     dist = torch.sqrt(((pred - true_al) ** 2).sum(dim=-1) + 1e-8)
     hub = torch.where(dist <= delta, 0.5 * dist ** 2,
                       delta * (dist - 0.5 * delta))
-    return (hub * mask[:, :, None]).sum() / (mask.sum() * 3 + 1e-8)
+    return (hub * mask[:, :, None]).sum() \
+        / (_count(mask.sum(), shard) * 3 + 1e-8)
 
 
 # ---------------------------------------------------------------------------
@@ -241,17 +257,18 @@ def augment_batch(c: np.ndarray, lens: np.ndarray, aug: VQAugmentConfig,
 
 
 def vqvae_loss(out, aux, coords_clean, coord_mask, lengths,
-               cfg: VQLossConfig):
+               cfg: VQLossConfig, shard=None):
     """-> (total, metrics dict).  coords_clean: NaN->0 coords (B, Lp, 3, 3);
-    coord_mask: (B, Lp) float32 finite-coordinate mask."""
+    coord_mask: (B, Lp) float32 finite-coordinate mask.  shard: the rows
+    are a data shard's; the losses are its parts of the global batch's."""
     pred = out["bb_pred"][:, 1:-1].float()
     mask = coord_mask * aux["valid"].float()
     recon_impl = drmsd_loss if cfg.recon == "drmsd" else kabsch_huber_loss
-    l_recon = recon_impl(pred, coords_clean, mask)
+    l_recon = recon_impl(pred, coords_clean, mask, shard=shard)
 
     z, z_q = aux["z"], aux["z_q"]
     vmask = aux["valid"].float()[:, :, None]
-    denom = vmask.sum() * z.shape[-1] + 1e-8
+    denom = _count(vmask.sum(), shard) * z.shape[-1] + 1e-8
     l_codebook = ((z.detach() - z_q) ** 2 * vmask).sum() / denom
     l_commit = ((z - z_q.detach()) ** 2 * vmask).sum() / denom
     total = l_recon + cfg.vq_weight * (l_codebook + cfg.beta * l_commit)
@@ -360,11 +377,14 @@ def gather_batch(coords: np.ndarray, lengths: np.ndarray, idx, device,
             for k, v in host.items()}
 
 
-def batch_loss(model: VQVAE, batch: dict, loss_cfg: VQLossConfig):
-    """(total, metrics + the step's z and valid mask) of one batch."""
+def batch_loss(model: VQVAE, batch: dict, loss_cfg: VQLossConfig,
+               shard=None):
+    """(total, metrics + the step's z and valid mask) of one batch (a data
+    shard's rows of a global batch with ``shard``)."""
     out, aux = model(batch["coords"], batch["lengths"])
     total, m = vqvae_loss(out, aux, batch["coords_clean"],
-                          batch["coord_mask"], batch["lengths"], loss_cfg)
+                          batch["coord_mask"], batch["lengths"], loss_cfg,
+                          shard=shard)
     return total, {**m, "z": aux["z"], "valid": aux["valid"]}
 
 
@@ -391,12 +411,28 @@ def train_vqvae(enc_cfg: EncoderConfig, dec_cfg: DecoderConfig,
     params: optional starting state dict (e.g. JAX's init carried over),
     else ``init_vqvae`` from ``seed``.  AdamW (decay 0.01) under optax's
     ``warmup_cosine_decay_schedule`` to lr/30, clipped at global norm 1.
-    augment: train-batch augmentation (``VQAugmentConfig``)."""
-    if data_parallel:
-        raise NotImplementedError("train_vqvae(data_parallel=True) is not "
-                                  "ported yet (the port trains on one "
-                                  "device)")
-    dev = resolve_device(device)
+    augment: train-batch augmentation (``VQAugmentConfig``).
+    data_parallel: this process is one rank of the open process group
+    (or, under torchrun, of the group it opens; with neither, the only
+    one): DDP over it, ``batch`` the global batch, divisible by the world
+    size."""
+    dev = resolve_device(pmesh.local_device(device) if data_parallel
+                         else device)
+    opened = pmesh.init_from_env(dev) if data_parallel else False
+    try:
+        return _train_vqvae(enc_cfg, dec_cfg, coords, lengths, steps, batch,
+                            lr, loss_cfg, seed, restart_every, val_idx,
+                            data_parallel, augment, log_every, log, dev,
+                            params)
+    finally:
+        pmesh.close(opened)
+
+
+def _train_vqvae(enc_cfg, dec_cfg, coords, lengths, steps, batch, lr,
+                 loss_cfg, seed, restart_every, val_idx, data_parallel,
+                 augment, log_every, log, dev, params) -> VQVAETrainResult:
+    if log and not is_main_process():
+        log = None
     rs = np.random.RandomState(seed)
     N = coords.shape[0]
     coords = np.asarray(coords, np.float32)
@@ -413,12 +449,19 @@ def train_vqvae(enc_cfg: EncoderConfig, dec_cfg: DecoderConfig,
     sched = tstate.warmup_cosine_decay_schedule(
         0.0, lr, warmup_steps=min(200, max(1, steps // 20)),
         decay_steps=steps, end_value=lr / 30)
+
+    def loss_fn(b, draws, training=True, shard=None):
+        return batch_loss(model, b, loss_cfg, shard=shard)
+
+    layout = None
+    if data_parallel:
+        loss_fn, layout = tstate.distribute(model, loss_fn, "ddp", batch,
+                                            dev)
     state = tstate.create_train_state(model, tstate.make_optimizer(
         model.parameters(), lr=lr, weight_decay=0.01, grad_clip=1.0,
-        schedule=sched))
-
-    def loss_fn(b, draws):
-        return batch_loss(model, b, loss_cfg)
+        schedule=sched), layout)
+    shard = None if layout is None else layout.shard
+    group = None if shard is None else shard.group
 
     val_batch = (gather_batch(coords, lengths, np.asarray(val_idx[:16]), dev)
                  if val_idx is not None and len(val_idx) else None)
@@ -429,12 +472,22 @@ def train_vqvae(enc_cfg: EncoderConfig, dec_cfg: DecoderConfig,
     tr_idx = np.arange(N) if val_idx is None else \
         np.setdiff1d(np.arange(N), val_idx)
     for it in range(steps):
-        b = gather_batch(coords, lengths, rs.choice(tr_idx, batch), dev,
-                         augment, rs)
+        idx = rs.choice(tr_idx, batch)
+        if shard is None:
+            b = gather_batch(coords, lengths, idx, dev, augment, rs)
+        else:
+            # every rank draws (and augments) the global batch, keeps its
+            # rows
+            b = {k: shard.rows(v) for k, v in gather_batch(
+                coords, lengths, idx, "cpu", augment, rs).items()}
+            b = {k: v.to(dev) for k, v in b.items()}
         m = tstate.train_step(state, loss_fn, b, None)
+        m["usage"] = pmesh.all_sum(m["usage"], group)
         usage_window += m["usage"].cpu().numpy()
         if it % 50 == 0:  # refresh the restart pool cheaply
-            pool = m["z"].cpu().numpy()[m["valid"].cpu().numpy()]
+            z = pmesh.gather_rows(m["z"], group)
+            valid = pmesh.gather_rows(m["valid"].to(torch.uint8), group)
+            pool = z.cpu().numpy()[valid.cpu().numpy().astype(bool)]
             if pool.size:
                 z_pool = pool[rs.permutation(len(pool))[:4096]]
         if restart_every and (it + 1) % restart_every == 0 \

@@ -9,6 +9,12 @@ separate files so that a sampler loads the parameters alone
 own, as the VQ-VAE export does).  ``index.json`` keeps the JAX layout: a
 list of {"step", "metric", "path"}, best metric first, at most
 ``save_top_k`` entries; a pruned entry's directory is deleted.
+
+Checkpoints are strategy-portable: under a ``train/state.py::distribute``
+layout every rank takes part in gathering whole tensors and rank 0 (the
+``writer``) writes them in the one-device layout (FSDP's full state dict,
+ZeRO's consolidated optimizer state, tensor-parallel shards joined), so a
+sampler loads them unchanged and any strategy resumes from them.
 """
 
 from __future__ import annotations
@@ -38,9 +44,14 @@ def load_params(step_dir: str | Path) -> dict:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str | Path, save_top_k: int = 1):
+    def __init__(self, directory: str | Path, save_top_k: int = 1,
+                 writer: bool = True):
+        """writer: this process writes (rank 0); the others only take
+        part in ``save``'s gathers."""
         self.dir = Path(directory).absolute()
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.writer = writer
+        if writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.save_top_k = save_top_k
         self._index_path = self.dir / "index.json"
         self._index = []
@@ -48,10 +59,21 @@ class CheckpointManager:
             self._index = json.loads(self._index_path.read_text())
 
     def save(self, state, step: int, metric: float):
+        if getattr(state, "layout", None) is None:
+            params = state.model.state_dict()
+            optimizer = state.optimizer.adamw.state_dict()
+        else:
+            # imported here: train.state imports this package's siblings
+            from esmdiff_tpu_torch.train import state as tstate
+
+            params = tstate.full_model_state(state)
+            optimizer = tstate.full_optimizer_state(state)
+        if not self.writer:
+            return
         path = self.dir / f"step_{step}"
         path.mkdir(parents=True, exist_ok=True)
-        torch.save(state.model.state_dict(), path / PARAMS)
-        torch.save(state.optimizer.adamw.state_dict(), path / OPTIMIZER)
+        torch.save(params, path / PARAMS)
+        torch.save(optimizer, path / OPTIMIZER)
         (path / STATE).write_text(json.dumps({"step": state.step}))
         self._index = [e for e in self._index if e["step"] != step]
         self._index.append({"step": step, "metric": metric,
@@ -69,9 +91,10 @@ class CheckpointManager:
         """Load ``path``'s parameters, optimizer state and step into
         ``state`` (in place, onto its devices) and return it."""
         path = Path(path)
-        state.model.load_state_dict(load_params(path), strict=True)
+        from esmdiff_tpu_torch.train import state as tstate
+
         dev = next(state.model.parameters()).device
-        state.optimizer.adamw.load_state_dict(torch.load(
+        tstate.load_full_state(state, load_params(path), torch.load(
             path / OPTIMIZER, map_location=dev, weights_only=True))
         state.step = json.loads((path / STATE).read_text())["step"]
         return state

@@ -1,8 +1,10 @@
-"""Metric logging: CSV sink + rank-0 gating.
+"""Metric logging: CSV sink + rank-0 gating, and profiler traces.
 
 Port of ``esmdiff_tpu/utils/logging.py``: a minimal CSV logger; extra
 backends (tensorboard, wandb) subscribe via ``add_sink``.  Only rank 0 of
-an initialised ``torch.distributed`` group logs.
+an initialised ``torch.distributed`` group logs.  ``start_profiler`` /
+``stop_profiler`` write the ``torch.profiler`` traces of the trainer's
+``profile_steps`` and the sampling CLI's ``--profile``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import time
 from pathlib import Path
 from typing import Callable
 
+import torch
 import torch.distributed as dist
 
 
@@ -20,6 +23,26 @@ def is_main_process() -> bool:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank() == 0
     return True
+
+
+def start_profiler(device) -> "torch.profiler.profile":
+    """A running ``torch.profiler`` of the CPU, and of the card's kernels
+    on ``cuda``; end it with ``stop_profiler``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.__enter__()
+    return prof
+
+
+def stop_profiler(prof, out_dir: Path) -> Path:
+    """End ``prof`` and write its chrome trace to ``out_dir/trace.json``."""
+    prof.__exit__(None, None, None)
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / "trace.json"))
+    return out_dir / "trace.json"
 
 
 class MetricLogger:

@@ -44,7 +44,7 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 44  # every module was imported
+    assert int(res.stdout.split()[-1]) >= 50  # every module was imported
 
 
 def test_serving_modules_import_without_jax():
@@ -63,6 +63,30 @@ def test_serving_modules_import_without_jax():
              "StructureTokenEncoder, knn_graph, nearest_code\n"
              "assert not [m for m in sys.modules if m.startswith("
              "'esmdiff_tpu.')]\n")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+def test_parallel_modules_import_without_jax():
+    """``parallel/*`` by name (mesh, fsdp, tp, ring, multihost), with jax,
+    flax, optax and orbax blocked, and the distributed pieces they use
+    (the rank workers of the tests import the port alone)."""
+    probe = ("import sys\n"
+             "for m in ('jax', 'flax', 'optax', 'orbax', "
+             "'orbax.checkpoint'):\n    sys.modules[m] = None\n"
+             "import esmdiff_tpu_torch.parallel.mesh"
+             ", esmdiff_tpu_torch.parallel.fsdp"
+             ", esmdiff_tpu_torch.parallel.tp"
+             ", esmdiff_tpu_torch.parallel.ring"
+             ", esmdiff_tpu_torch.parallel.multihost\n"
+             "from esmdiff_tpu_torch.parallel.mesh import RowShard, "
+             "init_from_env, shard_batch\n"
+             "from esmdiff_tpu_torch.parallel.tp import TPGroup, "
+             "shard_modules\n"
+             "from esmdiff_tpu_torch.train.state import distribute\n"
+             "assert not [m for m in sys.modules if m == 'esmdiff_tpu' or "
+             "m.startswith('esmdiff_tpu.')]\n")
     res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
@@ -266,14 +290,14 @@ def test_train_cli_without_device_raises(no_cuda, tmp_path):
 
 def test_train_vqvae_cli_without_device_raises(no_cuda, tmp_path):
     """esmdiff-torch-train-vqvae without --device cpu and no card raises
-    before it reads the corpus or writes anything; --data_parallel is
-    not ported."""
+    before it reads the corpus or writes anything, with --data_parallel
+    too (no gloo group stands in for the card)."""
     args = ["--input", str(ROOT / "data/targets/bpti"), "--output",
             str(tmp_path / "vq"), "--scale", "tiny", "--steps", "1"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_vqvae_cli.main(args)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_vqvae_cli.main([*args, "--device", "cpu", "--data_parallel"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_vqvae_cli.main([*args, "--data_parallel"])
     assert not (tmp_path / "vq").exists()
 
 
@@ -296,25 +320,18 @@ def test_server_without_device_raises(no_cuda):
 
 
 def test_unported_modes_raise(tmp_path):
-    """What stays unported raises: profiling and data parallelism
-    (inpainting, --mask_ids/--filled_ids, is ported:
-    tests/test_torch_inpaint.py).  A --ckpt that names no file raises
-    rather than falling back to random weights (PyTorch trunk files and
-    the port's own runs load: tests/test_torch_convert_weights.py,
+    """Profiling and data parallelism are ported
+    (tests/test_torch_mesh_sampling.py), as is inpainting, --mask_ids and
+    --filled_ids (tests/test_torch_inpaint.py).  A --ckpt that names no
+    file raises rather than falling back to random weights (PyTorch trunk
+    files and the port's own runs load: tests/test_torch_convert_weights.py,
     tests/test_torch_train_loop.py)."""
-    for extra in (["--data_parallel"], ["--profile", str(tmp_path / "trace")]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            cli.main(["--output", str(tmp_path), "--model_scale", "tiny",
-                      "--device", "cpu", *extra])
     with pytest.raises(FileNotFoundError, match="trunk.pt"):
         cli.main(["--output", str(tmp_path), "--model_scale", "tiny",
                   "--device", "cpu", "--ckpt", "trunk.pt"])
     with pytest.raises(FileNotFoundError, match="trunk.pt"):
         dump_cli.main([str(ROOT / "data/targets/bpti"), str(tmp_path),
                        "--ckpt", "trunk.pt", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve_cli.main(["--model_scale", "tiny", "--device", "cpu",
-                        "--port", "0", "--data_parallel"])
     with pytest.raises(FileNotFoundError, match="trunk.pt"):
         serve_cli.main(["--model_scale", "tiny", "--device", "cpu",
                         "--port", "0", "--ckpt", "trunk.pt"])

@@ -242,8 +242,8 @@ def test_request_parse_matches_jax(server, jax_service):
 def test_http_errors_and_unported(server):
     """Errors over HTTP, and what stays unported: a bad residue, eb with
     ``mask_ids`` and ``mask_ids`` without a 'pdb' prior are 400s (as in
-    JAX), inpainting with a 'pdb' prior runs in gibbs and ddpm (200),
-    ``--data_parallel`` raises."""
+    JAX), inpainting with a 'pdb' prior runs in gibbs and ddpm (200)
+    (``--data_parallel`` is ported: tests/test_torch_mesh_sampling.py)."""
     base, _ = server
     pdb = open(BPTI_PDB).read()
     for payload, frag in [
@@ -262,9 +262,6 @@ def test_http_errors_and_unported(server):
     status, body = _post(base + "/sample", [1, 2, 3])
     assert status == 400 and "JSON object" in body["error"]
     assert _post(base + "/nope", {})[0] == 404
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve_cli.main(["--model_scale", "tiny", "--device", "cpu",
-                        "--port", "0", "--data_parallel"])
 
 
 def test_ddpm_on_a_stock_head_server_matches_jax():

@@ -152,3 +152,121 @@ class JaxLossDraws:
 
     def move(self, shape):
         return self._t(jax.random.uniform(self.k_q, tuple(shape)))
+
+
+# -- multi-rank parity (tests/test_torch_parallel.py, test_torch_tp.py,
+# test_torch_multihost.py) ----------------------------------------------------
+
+TINY_TRUNK = dict(dtype="float32", head_type="structure",
+                  n_structure_heads=4101)
+STEP_OPTIM = dict(lr=1e-3, weight_decay=0.5, warmup_steps=1, grad_clip=1.0)
+STEP_KEYS = (20, 21, 22)
+
+
+def jax_tiny_mdlm():
+    """The JAX tiny MDLM (float32, structure head) and its
+    ``init(PRNGKey(0))`` params on the host."""
+    from esmdiff_tpu.diffusion import mdlm as jmdlm
+    from esmdiff_tpu.diffusion.noise import LogLinearNoise as JNoise
+    from esmdiff_tpu.models import esm3 as jesm3
+    from esmdiff_tpu.nn.layers import TimestepEmbedder as JTimestep
+
+    cfg = jesm3.esm3_tiny(**TINY_TRUNK)
+    jm = jmdlm.MDLM(jesm3.ESM3(cfg),
+                    JTimestep(hidden_size=cfg.d_model, dtype=jnp.float32),
+                    noise=JNoise(), cfg=jmdlm.MDLMConfig())
+    return jm, jax.device_get(jm.init(jax.random.PRNGKey(0)))
+
+
+def jax_strategy_run(jm, params, batch, strategy: str, packed_segments=0,
+                     keys=STEP_KEYS, optim=STEP_OPTIM):
+    """JAX's sharded train step under ``strategy`` (ddp | zero2 | fsdp on a
+    2-device data mesh, dpNxtpM on the 2-D mesh), one step a key:
+    (losses, grad norms, final params as the port's state dict)."""
+    from esmdiff_tpu.parallel import mesh as jmesh
+    from esmdiff_tpu.parallel import tp as jtp
+    from esmdiff_tpu.train import state as jstate
+    from esmdiff_tpu_torch.convert import flax_to_state_dict
+
+    shape = jtp.parse_tp_strategy(strategy)
+    mesh = (jtp.make_2d_mesh(*shape) if shape else jmesh.make_mesh(2))
+    opt = jstate.make_optimizer(**optim)
+    if packed_segments:
+        def loss(p, b, k):
+            return jm.loss_packed(p, b, k, max_segments=packed_segments)
+    else:
+        def loss(p, b, k):
+            return jm.loss(p, b, k)
+    losses, norms = [], []
+    with mesh:
+        state = jstate.create_sharded_train_state(params, opt, mesh,
+                                                  strategy=strategy)
+        sb = (jtp.shard_batch_2d(batch, mesh) if shape
+              else jmesh.shard_batch(batch, mesh))
+        step = jstate.make_train_step(loss, opt, mesh=mesh, donate=False)
+        for k in keys:
+            state, m = step(state, sb, jax.random.PRNGKey(k))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    return losses, norms, flax_to_state_dict(jax.device_get(state.params))
+
+
+def record_step_draws(batch, keys=STEP_KEYS, packed_segments=0):
+    """The draws JAX's loss makes from each key on ``batch`` (the global
+    batch), as ``RecordedDraws`` records, one list a key."""
+    from esmdiff_tpu_torch.diffusion.mdlm import RecordedDraws
+    from esmdiff_tpu_torch.train.loop import to_device
+    from torch_ranks import tiny_mdlm
+
+    tm = tiny_mdlm()
+    tb = to_device(batch, "cpu")
+    records = []
+    with torch.no_grad():
+        for k in keys:
+            d = RecordedDraws(source=JaxLossDraws(
+                jax.random.PRNGKey(k), packed=bool(packed_segments)))
+            if packed_segments:
+                tm.loss_packed(tb, d, max_segments=packed_segments)
+            else:
+                tm.loss(tb, d)
+            records.append(d.records)
+    return records
+
+
+def one_rank_steps(params_path, batch, records, packed_segments=0,
+                   optim=STEP_OPTIM, param_dtype=None):
+    """The port's steps on one process, no group: (losses, grad norms,
+    final state dict)."""
+    from esmdiff_tpu_torch.diffusion.mdlm import RecordedDraws
+    from esmdiff_tpu_torch.train import state as tstate
+    from esmdiff_tpu_torch.train.loop import (cast_params, mdlm_modules,
+                                              to_device)
+    from torch_ranks import tiny_mdlm
+
+    tm = tiny_mdlm(params_path)
+    modules = mdlm_modules(tm)
+    if param_dtype is not None:
+        cast_params(modules, param_dtype)
+    state = tstate.create_train_state(modules, tstate.make_optimizer(
+        modules.parameters(), **optim))
+    tb = to_device(batch, "cpu")
+    losses, norms = [], []
+    for rec in records:
+        if packed_segments:
+            def loss(b, d):
+                return tm.loss_packed(b, d, max_segments=packed_segments)
+        else:
+            def loss(b, d):
+                return tm.loss(b, d)
+        m = tstate.train_step(state, loss, tb, RecordedDraws(records=rec))
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    return losses, norms, {k: v.clone() for k, v in
+                           modules.state_dict().items()}
+
+
+def assert_state_close(got: dict, want: dict, rtol=1e-5, atol=1e-5):
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        np.testing.assert_allclose(to_np(got[k]), np.asarray(w), rtol=rtol,
+                                   atol=atol, err_msg=k)

@@ -1,7 +1,7 @@
 """The port's trainer end to end on the CPU (tiny trunk): the
 ``esmdiff-torch-train`` CLI, the debug modes, resume, top-k checkpoints,
 the configs both packages load alike, ``load_runtime`` and
-``cli.sample --ckpt``, and what raises "not ported yet"."""
+``cli.sample --ckpt``, and what raises."""
 
 import csv
 import dataclasses
@@ -234,17 +234,24 @@ def test_sample_with_ckpt_writes_a_pdb(smoke_run, tmp_path):
                for c in (30, 38, 46))
 
 
-@pytest.mark.parametrize("override,match", [
-    ("trainer.strategy=fsdp", "strategy"),
-    ("trainer.strategy=dp2xtp2", "strategy"),
-    ("trainer.multihost=true", "multihost"),
+@pytest.mark.parametrize("override,error,match", [
+    ("trainer.strategy=pp2", NotImplementedError, "pipeline.*not ported"),
+    ("trainer.strategy=dp2xpp2", NotImplementedError, "pipeline.*not ported"),
+    ("trainer.multihost=true", RuntimeError, "multihost needs torchrun"),
+    ("trainer.strategy=dp2xtp2", ValueError, "needs 4 ranks"),
 ])
-def test_unported_training_raises(corpus, tmp_path, override, match):
+def test_unported_training_raises(corpus, tmp_path, override, error, match):
+    """Pipeline parallelism is not ported yet; trainer.multihost without
+    torchrun's environment and a tensor-parallel strategy without its
+    ranks raise (the strategies that run: tests/test_torch_parallel.py,
+    tests/test_torch_tp.py)."""
     cfg = tconfig.load_config(None, [f"data.path={corpus}", *TINY,
-                                     f"trainer.ckpt_dir={tmp_path}",
+                                     f"trainer.ckpt_dir={tmp_path}/run",
                                      override])
-    with pytest.raises(NotImplementedError, match=f"{match}.*not ported"):
+    with pytest.raises(error, match=match):
         train(cfg, device="cpu")
+    if error is not ValueError:  # raised before anything is written
+        assert not (tmp_path / "run").exists()
 
 
 def _release_fixture(path):

@@ -310,7 +310,13 @@ def test_export_matches_training_forward(trained, setup, tmp_path):
 
 
 def test_data_parallel_not_ported(setup):
+    """data_parallel=True with no process group open and no torchrun
+    environment is the one-process trainer, bit for bit (2 ranks:
+    tests/test_torch_parallel.py)."""
     coords, lengths, *_ = setup
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tvq.train_vqvae(ENC, DEC, coords, lengths, steps=1, batch=2,
-                        data_parallel=True, device="cpu")
+    runs = [tvq.train_vqvae(ENC, DEC, coords, lengths, steps=2, batch=2,
+                            data_parallel=dp, device="cpu", log=None)
+            for dp in (False, True)]
+    assert runs[0].losses == runs[1].losses
+    for k, v in runs[0].params.items():
+        assert torch.equal(v, runs[1].params[k]), k
