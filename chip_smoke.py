@@ -210,14 +210,16 @@ Phases, each of which fails loudly (no error is caught):
      port), the model at full width (d_model 1536, 24 heads) and depth 4,
      on 48 seeded chains of 100-500 random tokens: esmdiff-torch-train
      (3 steps of batch 8, one val batch) with no group, then under ddp,
-     zero2, fsdp and dp1xtp1 (ddp's and zero2's losses and grad norms
-     bit for bit with the run with no group, fsdp's and dp1xtp1's within
-     twice the spread of two plain roundings of the same steps where
-     not: the run with no group under the flash kernel's plain version
-     and under XLA's attention; dp1xtp1 through tp.py's split modules
-     over a model group of one, its collectives counted; flash 7 a step,
-     4 an eval batch); the fsdp run's checkpoint (the
-     one-device layout) through --ckpt for one ddpm request on 1jm4.B
+     zero2, fsdp, dp1xtp1, pp1 (2 microbatches) and dp1xpp1 (the
+     automatic M, 1) (ddp's and zero2's losses and grad norms bit for
+     bit with the run with no group, the others' within twice the spread
+     of two plain roundings of the same steps where not: the run with no
+     group under the flash kernel's plain version and under XLA's
+     attention; dp1xtp1 through tp.py's split modules over a model group
+     of one, its collectives counted; flash 7 a step, 4 an eval batch,
+     M times that under pp.py's one stage of M microbatches); the pp1
+     run's checkpoint (the one-device layout) through load_runtime; the
+     fsdp run's checkpoint through --ckpt for one ddpm request on 1jm4.B
      (8 samples, 10 steps), then with --data_parallel and --profile (the
      same PDB, a trace written); one served request with and without
      --data_parallel (the same tokens); 3 steps of
@@ -3871,6 +3873,8 @@ def pipeline_path(torch, ops, card, runtime, train_numbers, train_corpus):
 PARALLEL_DEPTH, PARALLEL_WIDTH, PARALLEL_HEADS = 4, 1536, 24
 PARALLEL_VQ_SCALE = "mid"
 PARALLEL_STRATEGIES = ("ddp", "zero2", "fsdp", "dp1xtp1")
+# the pipeline strategies at one stage: (strategy, M; 0 = the automatic M)
+PARALLEL_PP = (("pp1", 2), ("dp1xpp1", 0))
 PARALLEL_DIR = ROOT / "output" / "chip_smoke_parallel"
 
 
@@ -3982,7 +3986,9 @@ def parallel_path(torch, ops, card, l128_dir, device="cuda"):
     from esmdiff_tpu_torch.cli import serve as server
     from esmdiff_tpu_torch.cli import train_vqvae as vq_cli
     from esmdiff_tpu_torch.nn import layers as nn_layers
+    from esmdiff_tpu_torch.convert import checkpoints as ckpts
     from esmdiff_tpu_torch.parallel import mesh as pmesh
+    from esmdiff_tpu_torch.parallel import pp as ppp
     from esmdiff_tpu_torch.parallel import ring
     from esmdiff_tpu_torch.parallel import tp as ptp
     from esmdiff_tpu_torch.train import state as tstate
@@ -4053,29 +4059,39 @@ def parallel_path(torch, ops, card, l128_dir, device="cuda"):
         want_backend = "nccl" if device == "cuda" else "gloo"
         if not opened or numbers["group"]["backend"] != want_backend:
             raise AssertionError(f"NCCL group of one: {numbers['group']}")
-        for strategy in PARALLEL_STRATEGIES:
+        # the microbatches of each run: 1 but under pp.py's stage
+        micro = dict.fromkeys(PARALLEL_STRATEGIES, 1)
+        for strategy, m in PARALLEL_PP:
+            micro[strategy] = m or ppp.auto_microbatches(8, 1)
+        for strategy in micro:
             tp_calls = {}
+            extra = ([f"trainer.pp_microbatches={micro[strategy]}"]
+                     if strategy in dict(PARALLEL_PP) else [])
             with counting(ptp.TPGroup, ("copy", "reduce", "layer_norm"),
                           tp_calls):
                 runs[strategy] = strategy_run(
                     torch, fa, tstate,
-                    [*overrides, f"trainer.strategy={strategy}"],
+                    [*overrides, f"trainer.strategy={strategy}", *extra],
                     PARALLEL_DIR / strategy, device)
             runs[strategy]["tp_calls"] = tp_calls
+            runs[strategy]["microbatches"] = micro[strategy]
         # dp1xtp1 goes through tp.py's split modules (the q/k LayerNorms'
         # statistics summed over the model group, the row-parallel outputs
         # reduced), the others do not
         if not all(runs["dp1xtp1"]["tp_calls"].get(n)
                    for n in ("copy", "reduce", "layer_norm")) or any(
-                runs[s]["tp_calls"] for s in ("ddp", "zero2", "fsdp")):
+                runs[s]["tp_calls"] for s in micro if s != "dp1xtp1"):
             failures.append("tensor parallel calls: " + json.dumps(
-                {s: runs[s]["tp_calls"] for s in PARALLEL_STRATEGIES}))
-        want = ([2 * PARALLEL_DEPTH - 1], [PARALLEL_DEPTH])
+                {s: runs[s]["tp_calls"] for s in micro}))
         for name, r in runs.items():
             if name == "no_group":
                 flash_plain += r["flash"]
             else:
                 flash += r["flash"]
+            # every block runs once a microbatch (pp's stage runs the
+            # geometric block on each too)
+            m = micro.get(name, 1)
+            want = ([m * (2 * PARALLEL_DEPTH - 1)], [m * PARALLEL_DEPTH])
             if (r["flash_per_train_step"], r["flash_per_eval_batch"]) != \
                     want or r["steps"] != 3:
                 failures.append(f"{name}: {r['steps']} steps, flash "
@@ -4091,9 +4107,10 @@ def parallel_path(torch, ops, card, l128_dir, device="cuda"):
                                      zip(r["grad_norms"],
                                          plain["grad_norms"]))
             # one rank leaves ddp's and zero2's arithmetic as it was: bit
-            # for bit; fsdp's copies through its flat buffers and
-            # dp1xtp1's q/k LayerNorms (tp.py's statistics) are held to
-            # twice the spread of the two plain roundings
+            # for bit; fsdp's copies through its flat buffers, dp1xtp1's
+            # q/k LayerNorms (tp.py's statistics) and pp's microbatches
+            # (products over fewer rows) are held to twice the spread of
+            # the two plain roundings
             if name in ("ddp", "zero2") and not exact:
                 failures.append(f"{name} at one rank not bit for bit: "
                                 f"{r['losses']} {r['grad_norms']} vs "
@@ -4114,16 +4131,28 @@ def parallel_path(torch, ops, card, l128_dir, device="cuda"):
             return Path(json.loads((PARALLEL_DIR / run / "ckpt" /
                                     "index.json").read_text())[0]["path"])
 
-        saved, ref = load_params(best("fsdp")), load_params(best("no_group"))
-        same = [k for k in ref if torch.equal(saved[k], ref[k])]
-        numbers["fsdp_ckpt"] = {
-            "keys_equal": saved.keys() == ref.keys(),
-            "shapes_equal": all(saved[k].shape == v.shape
-                                for k, v in ref.items()),
-            "tensors_equal_to_no_group_run": len(same), "tensors": len(ref)}
-        if not (numbers["fsdp_ckpt"]["keys_equal"]
-                and numbers["fsdp_ckpt"]["shapes_equal"]):
-            failures.append(f"fsdp checkpoint layout {numbers['fsdp_ckpt']}")
+        ref = load_params(best("no_group"))
+        for run in ("fsdp", "pp1"):
+            saved = load_params(best(run))
+            same = [k for k in ref if torch.equal(saved[k], ref[k])]
+            numbers[f"{run}_ckpt"] = got = {
+                "keys_equal": list(saved) == list(ref),
+                "shapes_equal": all(saved[k].shape == v.shape
+                                    for k, v in ref.items()),
+                "tensors_equal_to_no_group_run": len(same),
+                "tensors": len(ref)}
+            if run == "pp1":
+                # the pipeline's checkpoint through load_runtime: the
+                # trunk holds its tensors
+                rt = ckpts.load_runtime(PARALLEL_DIR / run / "ckpt",
+                                        device=device)
+                got["load_runtime_equal"] = all(
+                    torch.equal(v.cpu(), saved[f"net.{k}"])
+                    for k, v in rt.trunk.state_dict().items())
+                del rt
+            if not (got["keys_equal"] and got["shapes_equal"]
+                    and got.get("load_runtime_equal", True)):
+                failures.append(f"{run} checkpoint layout {got}")
         ckpt = PARALLEL_DIR / "fsdp" / "ckpt"
         args = ["--ckpt", str(ckpt), "--mode", "ddpm", "--input",
                 str(l128_dir), "--num_samples", "8", "--num_steps", "10",

@@ -25,7 +25,8 @@ parents (``a--targets``, ``b--targets``).  ``--data_parallel`` splits
 each batch's rows across a replica of the trunk on every visible card (one
 process; ``EnsembleSampler(devices=...)``); ``--profile DIR`` writes a
 ``torch.profiler`` trace of the sampling phase to ``DIR/trace.json``.
-The JAX package's orbax checkpoints are not ported yet and raise.
+``--ckpt`` also takes a JAX package's orbax run, where tensorstore is
+installed (``convert/orbax.py``).
 
     python -m esmdiff_tpu_torch.cli.sample --input data/targets/bpti \\
         --output output/torch --mode gibbs --num_steps 16 --num_samples 100

@@ -141,7 +141,15 @@ def load_flax_params(module: nn.Module, tree: Mapping) -> nn.Module:
             raise ValueError(f"{name}: flax shape {arr.shape} vs port "
                              f"{tuple(own[name].shape)}")
     module.load_state_dict(
-        {k: torch.from_numpy(np.array(v)).to(
-            dtype=own[k].dtype, device=own[k].device)
+        {k: numpy_to_torch(v).to(dtype=own[k].dtype, device=own[k].device)
          for k, v in sd.items()}, strict=True)
     return module
+
+
+def numpy_to_torch(arr) -> torch.Tensor:
+    """A CPU tensor copy of a numpy array; ml_dtypes' bfloat16 (which
+    ``torch.from_numpy`` refuses) through a uint16 view, bit for bit."""
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)

@@ -3,12 +3,16 @@
 Port of ``esmdiff_tpu/convert/checkpoints.py``.  ``load_runtime`` builds
 an ``ESM3Runtime`` from
 
-  1. one of the port's own training runs (``train/loop.py``): the
-     checkpoint directory (its best entry in ``index.json``) or one
-     ``step_N`` directory, with the run's ``config.yaml`` beside it, from
-     which the trunk and the sigma embedder are rebuilt.  The parameters
-     are loaded as saved (float32), as the JAX runtime holds its params;
-     each module casts its matmul weights at use;
+  1. a training run of the port (``train/loop.py``) or of the JAX
+     package (its orbax ``CheckpointManager`` steps, read by
+     ``convert/orbax.py`` where tensorstore is installed): the run, its
+     checkpoint directory (the best entry in ``index.json``) or one
+     ``step_N`` directory, with the run's ``config.yaml`` two levels up,
+     from which the trunk and the sigma embedder are rebuilt.  The
+     parameters are loaded as saved (float32; a JAX state's
+     ``params["net"]`` and ``["sigma_embedder"]`` through
+     ``load_flax_params``), as the JAX runtime holds its params; each
+     module casts its matmul weights at use;
   2. a reference PyTorch file (``.pt``/``.ckpt``; any layout of
      ``convert/torch_ckpt.py``): the ESM3 trunk at the geometry the file
      encodes (``infer_trunk_config``: width, depth, head type, 4096
@@ -31,19 +35,20 @@ weights from seed 0, as in JAX.
 
 ``save_vqvae``/``load_vqvae`` keep the JAX layout's ``vqvae.json``
 (``encoder_cfg``, ``decoder_cfg``) beside ``params.pt`` (the port's
-``utils/checkpoint.py``) in place of orbax's ``params/``.
+``utils/checkpoint.py``) in place of orbax's ``params/``; ``load_vqvae``
+also reads the JAX package's directories (``params/`` in orbax, the
+decoder's stacked layers unstacked).
 
-``load_ar_params`` fills a CLM or JLM from one of the port's own CLM/JLM
-training runs (the run, its checkpoint directory or a ``step_N``
-directory: ``params.pt`` holds the net's state dict, loaded strictly; the
-optimizer state is ignored), or from an HF torch checkpoint
-(``convert/ar_rules.py``), strictly: unlike the JAX package's, which
-converts with the CLM rules for 12 layers unless told otherwise and keeps
-the random value of every leaf it cannot fill, it takes the rules and the
-depth from the model it fills and raises on any leaf left unfilled.
-
-Not ported yet, and raising: the JAX package's orbax run, VQ-VAE and AR
-directories.
+``load_ar_params`` fills a CLM or JLM from a CLM/JLM training run of the
+port (the run, its checkpoint directory or a ``step_N`` directory:
+``params.pt`` holds the net's state dict, loaded strictly; the optimizer
+state is ignored) or of the JAX package (an orbax directory of bare
+params or of a TrainState, or such a run: ``load_flax_params``,
+strictly), or from an HF torch checkpoint (``convert/ar_rules.py``),
+strictly: unlike the JAX package's, which converts with the CLM rules for
+12 layers unless told otherwise and keeps the random value of every leaf
+it cannot fill, it takes the rules and the depth from the model it fills
+and raises on any leaf left unfilled.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ import torch
 
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime
 from esmdiff_tpu_torch.convert import load_flax_params
+from esmdiff_tpu_torch.convert import orbax
 from esmdiff_tpu_torch.convert.ar_rules import clm_rules, jlm_rules
 from esmdiff_tpu_torch.convert.torch_ckpt import (
     convert_mdlm, convert_vqvae_decoder, convert_vqvae_encoder,
@@ -80,10 +86,6 @@ from esmdiff_tpu_torch.utils.checkpoint import (PARAMS, load_params,
 VQVAE_JSON = "vqvae.json"
 # DecoderConfig fields of the JAX package that mean nothing here
 _JAX_ONLY_DECODER_FIELDS = ("scan_layers",)
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet")
 
 
 def scale_configs(model_scale: str = "full") -> dict:
@@ -125,7 +127,9 @@ def file_configs(state_dict) -> dict:
 def _run_step_dir(path: str | Path) -> tuple[Path, Path]:
     """(step directory, run directory) of a checkpoint path: a run
     directory or its checkpoint directory (``index.json``'s best entry),
-    or a ``step_N`` directory holding ``params.pt``."""
+    or a ``step_N`` directory holding ``params.pt`` (the port's) or an
+    orbax checkpoint (the JAX package's).  Raises FileNotFoundError on
+    anything else."""
     path = Path(path)
     if not (path / "index.json").exists() and \
             (path / "ckpt" / "index.json").exists():
@@ -137,10 +141,23 @@ def _run_step_dir(path: str | Path) -> tuple[Path, Path]:
         # the entry's directory name under this checkpoint directory, so a
         # moved run still loads
         return path / Path(index[0]["path"]).name, path.parent
-    if (path / PARAMS).exists():
+    if (path / PARAMS).exists() or orbax.is_orbax_dir(path):
         return path, path.parent.parent
-    _not_ported(f"loading {path}: not a checkpoint of the port's trainer "
-                "(orbax checkpoints of the JAX package)")
+    raise FileNotFoundError(
+        f"{path}: neither a checkpoint of the port's trainer ({PARAMS}, "
+        f"index.json) nor an orbax checkpoint of the JAX package "
+        f"({orbax.METADATA})")
+
+
+def _load_step(module: torch.nn.Module, step_dir: Path) -> str:
+    """Fill ``module`` strictly from a step directory: the port's
+    ``params.pt``, or the ``params`` (of a TrainState, else the bare tree)
+    of an orbax checkpoint of the JAX package.  Returns which."""
+    if orbax.is_orbax_dir(step_dir):
+        load_flax_params(module, orbax.params_of(orbax.read_tree(step_dir)))
+        return "the JAX package's orbax checkpoint"
+    load_state_dict_strict(module, load_params(step_dir), step_dir)
+    return "the port's run"
 
 
 def save_vqvae(out_dir, encoder_cfg: EncoderConfig, encoder_params: Mapping,
@@ -168,12 +185,16 @@ def read_vqvae_json(path) -> tuple[EncoderConfig, DecoderConfig]:
 
 def load_vqvae(ckpt_dir):
     """-> (encoder_cfg, encoder_params, decoder_cfg, decoder_params), the
-    params as state dicts of CPU tensors, as saved."""
+    params as state dicts of CPU tensors, as saved (a JAX package's orbax
+    ``params/``: carried into the port's modules, float32)."""
     path = Path(ckpt_dir).absolute()
-    if not (path / PARAMS).exists() and (path / "params").is_dir():
-        _not_ported(f"loading {path}: an orbax VQ-VAE checkpoint of the JAX "
-                    "package")
     enc_cfg, dec_cfg = read_vqvae_json(path / VQVAE_JSON)
+    if not (path / PARAMS).exists() and (path / "params").is_dir():
+        tree = orbax.read_tree(path / "params")
+        return (enc_cfg, load_flax_params(StructureTokenEncoder(enc_cfg),
+                                          tree["encoder"]).state_dict(),
+                dec_cfg, load_flax_params(StructureTokenDecoder(dec_cfg),
+                                          tree["decoder"]).state_dict())
     params = load_params(path)
     return (enc_cfg, sub_state_dict(params, "encoder."), dec_cfg,
             sub_state_dict(params, "decoder."))
@@ -223,7 +244,7 @@ def _load_runtime_from_run(path: Path, vqvae_ckpt, device) -> ESM3Runtime:
     cfg = load_config(str(cfg_file))
     dev = resolve_device(device)
     mdlm = build_mdlm(cfg, dev)
-    mdlm_modules(mdlm).load_state_dict(load_params(step_dir), strict=True)
+    _load_step(mdlm_modules(mdlm), step_dir)
     if vqvae_ckpt:
         # every module has saved weights: no random init to throw away
         encoder, decoder = vqvae_modules(vqvae_ckpt, dev)
@@ -371,20 +392,17 @@ def load_state_dict_strict(model: torch.nn.Module, state_dict: Mapping,
 
 
 def load_ar_params(ckpt_path: str | Path, model: CLM | JLM) -> CLM | JLM:
-    """Fill ``model`` from one of the port's CLM/JLM runs (a run, checkpoint
-    or ``step_N`` directory; its ``params.pt``, strictly), or from an HF
-    torch checkpoint (``.pt``/``.ckpt``: a bare state dict, DeepSpeed's
-    ``module`` or Lightning's ``state_dict``, ``net.``-prefixed keys
-    unwrapped) through ``convert_ar``."""
+    """Fill ``model`` from a CLM/JLM run of the port or of the JAX package
+    (a run, checkpoint or ``step_N`` directory, or an orbax directory of
+    bare params: ``_load_step``, strictly), or from an HF torch checkpoint
+    (``.pt``/``.ckpt``: a bare state dict, DeepSpeed's ``module`` or
+    Lightning's ``state_dict``, ``net.``-prefixed keys unwrapped) through
+    ``convert_ar``."""
     path = Path(ckpt_path)
     if path.is_dir():
-        if not any((d / f).exists() for d in (path, path / "ckpt")
-                   for f in ("index.json", PARAMS)):
-            _not_ported(f"loading {path}: an orbax AR checkpoint of the JAX "
-                        "package")
         step_dir, _ = _run_step_dir(path)
-        load_state_dict_strict(model, load_params(step_dir), step_dir)
-        print(f"[load_ar_params] {type(model).__name__} from the port's run "
+        source = _load_step(model, step_dir)
+        print(f"[load_ar_params] {type(model).__name__} from {source} "
               f"{step_dir} ({len(model.state_dict())} tensors)")
         return model
     convert_ar(model, unwrap_net(load_torch_state_dict(str(path))))

@@ -310,6 +310,8 @@ class MDLM:
         out = self.net(structure_tokens=xt, sequence_tokens=condition_seq,
                        sequence_id=sequence_id, lengths=lengths,
                        positions=positions, auxiliary_embeddings=aux)
+        if out is None:  # a pipeline stage without the heads
+            return None, None
         # the head's float32 output is fresh: shield it in place
         logits = out.structure_logits.float().reshape(B, L, -1)
         if parameterize:
@@ -399,7 +401,8 @@ class MDLM:
         shard: the batch is these rows of a global batch
         (``parallel/mesh.py``): the draws are the global batch's, of which
         it keeps its rows, and the loss is its part of the global loss.
-        Returns (loss, dict of breakdown metrics)."""
+        Returns (loss, dict of breakdown metrics); (None, {}) on a
+        pipeline stage that holds no heads (``parallel/pp.py``)."""
         cfg = self.cfg
         x0 = batch["structure_tokens"]
         shard = shard or RowShard.whole(x0.shape[0])
@@ -414,6 +417,8 @@ class MDLM:
             non_moving_mask=batch.get("non_moving_mask"))
         logits, seq_logits = self.forward_logits(
             xt, condition_seq, cond[:, None], parameterize=True)
+        if logits is None:  # a pipeline stage without the heads
+            return None, {}
         return self._nelbo(logits, seq_logits, x0, batch["sequence_tokens"],
                            loss_mask, None if weight is None
                            else weight[:, None], shard)

@@ -299,10 +299,13 @@ class CLM(nn.Module):
         return self.lm_head(self.dec_norm(x)).float()
 
     def forward(self, inputs_embeds, labels=None, attention_mask=None,
-                decoder_input_ids=None):
+                decoder_input_ids=None, count=None):
         """The training forward: {"logits", "loss" when labels are given};
         labels -100 are ignored, the decoder input is the start token then
-        the labels shifted right."""
+        the labels shifted right.  The loss is the sum of the labels'
+        cross-entropies over ``count`` of their number (default the number
+        itself: the batch's mean; ``RowShard.sum``: this batch's part of a
+        global batch's mean)."""
         enc = self.encode(inputs_embeds, attention_mask)
         if decoder_input_ids is None:
             if labels is None:
@@ -322,7 +325,8 @@ class CLM(nn.Module):
             safe = torch.where(labels == -100, 0, labels)
             nll = -lp.gather(-1, safe[..., None].long())[..., 0]
             valid = (labels != -100).float()
-            out["loss"] = (nll * valid).sum() / valid.sum().clamp_min(1.0)
+            n = valid.sum() if count is None else count(valid.sum())
+            out["loss"] = (nll * valid).sum() / n.clamp_min(1.0)
         return out
 
     # -- incremental decoding -----------------------------------------------

@@ -184,8 +184,22 @@ class TransformerStack(nn.Module):
             # is the equivalent 0/1 id pattern
             sequence_id = (torch.arange(x.shape[1], device=x.device)[None, :]
                            < lengths.to(x.device)[:, None]).int()
+        x = self.run_blocks(x, range(cfg.n_layers), rot_cos, rot_sin,
+                            mask=mask, lengths=lengths, affine=affine,
+                            affine_mask=affine_mask, sequence_id=sequence_id,
+                            chain_id=chain_id, skip_geom=skip_geom)
+        return self.norm(x), x
+
+    def run_blocks(self, x, indices, rot_cos, rot_sin, mask=None,
+                   lengths=None, affine=None, affine_mask=None,
+                   sequence_id=None, chain_id=None, skip_geom: bool = False):
+        """Blocks ``indices`` in order on ``x``; those from
+        ``n_layers_geom`` on rematerialised while autograd records (with
+        ``remat``)."""
+        cfg = self.cfg
         remat = cfg.remat and torch.is_grad_enabled()
-        for i, block in enumerate(self.blocks):
+        for i in indices:
+            block = self.blocks[i]
             if remat and i >= cfg.n_layers_geom:
                 x = checkpoint(block, x, rot_cos, rot_sin, mask=mask,
                                lengths=lengths, **self.remat_kwargs)
@@ -194,7 +208,7 @@ class TransformerStack(nn.Module):
                       affine=affine, affine_mask=affine_mask,
                       sequence_id=sequence_id, chain_id=chain_id,
                       skip_geom=skip_geom)
-        return self.norm(x), x
+        return x
 
 
 class ESM3(nn.Module):
@@ -214,6 +228,9 @@ class ESM3(nn.Module):
                 n_sequence_heads=cfg.n_sequence_heads, dtype=dt)
         else:
             self.output_heads = OutputHeads(cfg.d_model, dtype=dt)
+        # this rank's stage of a pipeline (parallel/pp.py), which then runs
+        # the forward; None = the whole trunk here
+        self.pipeline = None
 
     def embed(self, structure_tokens=None, sequence_tokens=None,
               ss8_tokens=None, sasa_tokens=None, function_tokens=None,
@@ -285,7 +302,20 @@ class ESM3(nn.Module):
                 auxiliary_embeddings=None) -> ESMOutput:
         """The trunk's forward.  ``sequence_id``/``lengths``/``positions``
         as in ``TransformerStack.forward``; ``structure_coords`` and
-        ``chain_id`` (default all 0) feed geometric attention."""
+        ``chain_id`` (default all 0) feed geometric attention.  Under a
+        pipeline (``pipeline``) this rank's stage runs it, and a stage
+        that holds no heads returns None."""
+        if self.pipeline is not None:
+            return self.pipeline.forward(
+                self, structure_tokens=structure_tokens,
+                sequence_tokens=sequence_tokens, ss8_tokens=ss8_tokens,
+                sasa_tokens=sasa_tokens, function_tokens=function_tokens,
+                residue_annotation_tokens=residue_annotation_tokens,
+                average_plddt=average_plddt, per_res_plddt=per_res_plddt,
+                structure_coords=structure_coords, chain_id=chain_id,
+                sequence_id=sequence_id, lengths=lengths,
+                positions=positions,
+                auxiliary_embeddings=auxiliary_embeddings)
         x, affine, affine_mask, chain_id, skip_geom = self.embed(
             structure_tokens=structure_tokens,
             sequence_tokens=sequence_tokens, ss8_tokens=ss8_tokens,

@@ -159,10 +159,13 @@ class JLM(nn.Module):
         return x + self.wpe(pos)[None]
 
     def forward(self, sequence_embeddings, structure_tokens, labels=None,
-                mask=None):
+                mask=None, count=None):
         """The training forward: {"sequence_logits", "structure_logits"},
         and with ``labels`` (B, L + Ls; -100 ignored) and ``mask`` (B, L)
-        the per-segment nll and accuracy and the weighted loss."""
+        the per-segment nll and accuracy and the weighted loss.  Each
+        segment's sums divide by ``count`` of its number of labels
+        (default the number itself; ``RowShard.sum``: this batch's part of
+        a global batch's means)."""
         cfg = self.cfg
         L = sequence_embeddings.shape[1]
         x = self._joint_embeds(sequence_embeddings, structure_tokens)
@@ -192,7 +195,8 @@ class JLM(nn.Module):
             safe = torch.where(shift_labels == -100, 0, shift_labels)
             nll = -lp.gather(-1, safe[..., None].long())[..., 0]
             valid = (shift_labels != -100).float() * lm
-            denom = valid.sum().clamp_min(1.0)
+            denom = (valid.sum() if count is None
+                     else count(valid.sum())).clamp_min(1.0)
             seg_loss = (nll * valid).sum() / denom
             pred = shift_logits.argmax(dim=-1)
             out[f"{name}_nll"] = seg_loss

@@ -1,4 +1,4 @@
 """Parallelism on the port (``torch.distributed``): process groups and
 data sharding (``mesh``), FSDP (``fsdp``), tensor parallelism (``tp``),
-the sequence-parallel attention ring (``ring``) and the multi-process
-dryrun (``multihost``).  Pipeline parallelism is not ported yet."""
+pipeline parallelism (``pp``), the sequence-parallel attention ring
+(``ring``) and the multi-process dryrun (``multihost``)."""

@@ -121,10 +121,11 @@ class TrainerConfig:
     multihost: bool = False
     # sharding strategy over torchrun's ranks (reference
     # configs/trainer/: ddp.yaml = ddp, deepspeed.yaml stage 2 = zero2;
-    # fsdp, dpNxtpM, tpM; ppS and dpNxppS raise: not ported yet).  With no
-    # process group every strategy but tpM (M > 1) is the one-device step.
+    # fsdp, dpNxtpM, tpM, dpNxppS, ppS).  With no process group every
+    # strategy but tpM and ppS (M, S > 1) is the one-device step.
     strategy: str = "zero2"
-    # GPipe microbatch count for the pp strategies (not ported yet)
+    # GPipe microbatch count for the pp strategies (0 = the smallest
+    # divisor of the per-data-slice batch >= the stage count)
     pp_microbatches: int = 0
     # experiment-tracking backend: csv (built-in) | tensorboard | wandb
     # (reference configs/logger/, train.yaml:10)

@@ -16,11 +16,13 @@ under torchrun the group opens from its environment
 (``parallel/mesh.py``) and ``trainer.strategy`` lays the model out over it
 (``train/state.py::distribute``); every rank builds the same global batch
 and the same draws and keeps its rows, so N ranks give the numbers of
-one.  Rank 0 logs and writes the checkpoints, in the one-device layout;
-the val loss is summed over the ranks.  ``trainer.multihost`` is the same
-launch across nodes and raises without torchrun's environment.  The CLM
-and JLM losses are their rows' own means, so these tasks train on one
-data rank only.  ``model.pretrained_ckpt`` fills the trunk from a
+one (the CLM and JLM losses too: a rank's cross-entropies over the
+global batch's count of labels).  Rank 0 logs and writes the
+checkpoints, in the one-device layout; the val loss is summed over the
+ranks.  The pp strategies run the MDLM's trunk as pipeline stages
+(``parallel/pp.py``) after JAX's checks (``pp.check_training``).
+``trainer.multihost`` is the same launch across nodes and raises without
+torchrun's environment.  ``model.pretrained_ckpt`` fills the trunk from a
 reference PyTorch file after the seeded init (``init_params``);
 ``model.param_dtype=bfloat16`` holds the MDLM's parameters, gradients and
 AdamW moments in bfloat16; ``model.remat_policy`` picks what the trunk's
@@ -52,6 +54,7 @@ from esmdiff_tpu_torch.models.jlm import JLM, JLMConfig
 from esmdiff_tpu_torch.nn.layers import LayerNorm, TimestepEmbedder
 from esmdiff_tpu_torch.nn.layers import init_params as init_module_params
 from esmdiff_tpu_torch.parallel import mesh as pmesh
+from esmdiff_tpu_torch.parallel import pp as ppp
 from esmdiff_tpu_torch.utils.checkpoint import CheckpointManager
 from esmdiff_tpu_torch.utils.logging import (MetricLogger, is_main_process,
                                              make_sink, start_profiler,
@@ -178,13 +181,15 @@ def load_pretrained(mdlm: MDLM, path: str) -> dict:
 def _clm_loss(model: CLM):
     """CLM objective: next-structure-token CE given the per-residue ESM3
     embeddings (reference model.py:289-313); labels -100 where
-    mask <= 0.5."""
+    mask <= 0.5.  Of a shard's rows: the sum of their cross-entropies over
+    the global batch's count of labels (its part of JAX's global mean)."""
 
     def loss_fn(batch, draws=None, training=True, shard=None):
         mask = batch["mask"]
         labels = torch.where(mask > 0.5, batch["structure_tokens"], -100)
         out = model(inputs_embeds=batch["embeddings"], labels=labels,
-                    attention_mask=mask)
+                    attention_mask=mask,
+                    count=None if shard is None else shard.sum)
         return out["loss"], {"nll": out["loss"]}
 
     return loss_fn
@@ -192,7 +197,8 @@ def _clm_loss(model: CLM):
 
 def _jlm_loss(model: JLM):
     """JLM objective: shift-by-one CE over both segments of the joint
-    (sequence, structure) stream (reference model.py:247-287)."""
+    (sequence, structure) stream (reference model.py:247-287); of a
+    shard's rows, over the global batch's counts, as ``_clm_loss``."""
 
     def loss_fn(batch, draws=None, training=True, shard=None):
         mask = batch["mask"]
@@ -201,7 +207,7 @@ def _jlm_loss(model: JLM):
         out = model(sequence_embeddings=batch["embeddings"],
                     structure_tokens=batch["structure_tokens"],
                     labels=torch.cat([seq_labels, str_labels], dim=1),
-                    mask=mask)
+                    mask=mask, count=None if shard is None else shard.sum)
         return out["loss"], {"seq_nll": out["sequence_nll"],
                              "str_nll": out["structure_nll"],
                              "seq_acc": out["sequence_acc"],
@@ -241,6 +247,16 @@ def build_task(cfg: TrainConfig, device=None,
         model = build_jlm(cfg, device, cond_dim=D)
         return model, _jlm_loss(model)
     raise ValueError(f"unknown task_name: {task!r} (mdlm | clm | jlm)")
+
+
+def fsdp_units(model) -> list:
+    """The blocks ``fsdp`` makes units of: the trunk's, or the AR net's
+    encoder and decoder blocks."""
+    if isinstance(model, MDLM):
+        return list(model.net.transformer.blocks)
+    if isinstance(model, CLM):
+        return [*getattr(model, "enc_blocks", ()), *model.dec_blocks]
+    return list(model.blocks)
 
 
 def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -340,21 +356,27 @@ def _train(cfg: TrainConfig, dev: torch.device) -> dict:
                 f"task {cfg.task_name!r} needs embeddings in the encoding "
                 f"dump — regenerate with cli/dump.py --with_embeddings")
         emb_dim = int(probe["embeddings"].shape[-1])
+    microbatches = 0
+    if ppp.parse_pp_strategy(cfg.trainer.strategy) is not None:
+        # GPipe stages of the trunk (parallel/pp.py): JAX's checks
+        microbatches = ppp.check_training(
+            cfg.task_name, cfg.data.pack_len, cfg.data.batch_size,
+            cfg.trainer.strategy, cfg.trainer.pp_microbatches)
 
     task_model, loss_fn = build_task(cfg, dev, emb_dim=emb_dim)
     init_task(task_model, cfg)
     model = task_modules(task_model)
     n_params = sum(p.numel() for p in model.parameters())
     say(f"[model] task={cfg.task_name} {n_params/1e6:.1f}M params on {dev}")
-    if cfg.task_name != "mdlm" and torch.distributed.is_initialized() \
-            and pmesh.world() > 1:
-        raise NotImplementedError(
-            f"task_name={cfg.task_name} across {pmesh.world()} ranks is "
-            f"not ported yet: the AR losses are means over their own rows")
     loss_fn, layout = tstate.distribute(
         model, loss_fn, cfg.trainer.strategy, cfg.data.batch_size, dev,
-        blocks=(task_model.net.transformer.blocks
-                if isinstance(task_model, MDLM) else ()))
+        blocks=fsdp_units(task_model),
+        microbatches=microbatches)
+    if layout.pipeline is not None:
+        p = layout.pipeline
+        say(f"[mesh] 2-D dp{layout.data_world} x pp{p.n_stage} "
+            f"({p.n_microbatches} microbatches), rank {pmesh.rank()} holds "
+            f"blocks {p.blocks}")
     optimizer = tstate.make_optimizer(
         model.parameters(), lr=cfg.optim.lr,
         weight_decay=cfg.optim.weight_decay,

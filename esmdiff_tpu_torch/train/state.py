@@ -17,9 +17,12 @@ the train and eval steps.  ``distribute`` lays a model out by
     whole and runs the same split modules over a model group of one), DDP
     over the data axis (the moments lie as their parameters do: JAX also
     shards the replicated leaves' moments over ``data``);
-  * ``ppS`` / ``dpNxppS`` raise: pipeline parallelism is not ported yet.
-With no process group a strategy is the one-device step (``tpM`` with
-M > 1 raises: it needs M ranks).
+  * ``dpNxppS`` / ``ppS``: GPipe stages of the trunk over the stage axis
+    of a (data, stage) mesh (``parallel/pp.py``; at S = 1 the one stage
+    still runs its M microbatches), the gradients summed over the data
+    axis by hand and the moments ZeRO-2 over it.
+With no process group a strategy is the one-device step (``tpM`` and
+``ppS`` with M, S > 1 raise: they need their ranks).
 
 The loss of a rank's rows divides by the global batch's counts
 (``mesh.RowShard``) and is scaled by the data world before the gradient
@@ -50,7 +53,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import re
 from typing import Callable, Optional
 
 import torch
@@ -59,10 +61,11 @@ from torch import nn
 
 from esmdiff_tpu_torch.parallel import fsdp as pfsdp
 from esmdiff_tpu_torch.parallel import mesh as pmesh
+from esmdiff_tpu_torch.parallel import pp as ppp
 from esmdiff_tpu_torch.parallel import tp as ptp
 from esmdiff_tpu_torch.utils.logging import is_main_process
 
-STRATEGIES = ("ddp", "zero2", "fsdp", "dpNxtpM", "tpM")
+STRATEGIES = ("ddp", "zero2", "fsdp", "dpNxtpM", "tpM", "dpNxppS", "ppS")
 # parameter elements one AdamW update call takes at once: its temporaries
 # (up to three of the chunk's size) stay small beside the state
 UPDATE_CHUNK = 1 << 26
@@ -219,12 +222,13 @@ class Layout:
     """How a train state lies over the ranks (``distribute``): the rows of
     the global batch this rank holds (None: all of them, no group), the
     model axis of tensor parallelism, whether FSDP shards the parameters,
-    whether ZeRO shards the moments."""
+    whether ZeRO shards the moments, this rank's pipeline stage."""
 
     shard: Optional[pmesh.RowShard] = None
     tp: Optional[ptp.TPGroup] = None
     fsdp_group: object = None
     zero_group: object = None
+    pipeline: Optional[ppp.Pipeline] = None
 
     @property
     def data_world(self) -> int:
@@ -239,9 +243,18 @@ class Layout:
             return self.tp.group
         return None
 
+    @property
+    def data_root(self) -> bool:
+        """This rank holds the first rows of the global batch (data index
+        0)."""
+        return self.shard is None or self.shard.lo == 0
+
     def reduce(self, metrics: dict) -> dict:
         """Every scalar metric of a rank's rows summed over the data axis:
-        the global batch's value."""
+        the global batch's value (under a pipeline, the last stage's,
+        shared with the others first)."""
+        if self.pipeline is not None:
+            metrics = self.pipeline.share(metrics)
         if self.data_world == 1:
             return metrics
         return {k: self.shard.sum(v) if v.dim() == 0
@@ -287,12 +300,9 @@ def create_train_state(model: nn.Module, optimizer: Optimizer,
 
 def check_strategy(strategy: str) -> None:
     """Raise on a strategy the port does not run."""
-    if re.fullmatch(r"(dp\d+x)?pp\d+", strategy):
-        raise NotImplementedError(
-            f"trainer.strategy={strategy!r} (pipeline parallelism) is not "
-            f"ported yet: it is the next slice of the port")
     if strategy in ("ddp", "zero2", "fsdp") or \
-            ptp.parse_tp_strategy(strategy) is not None:
+            ptp.parse_tp_strategy(strategy) is not None or \
+            ppp.parse_pp_strategy(strategy) is not None:
         return
     raise ValueError(f"unknown strategy: {strategy!r} "
                      f"({' | '.join(STRATEGIES)})")
@@ -312,21 +322,26 @@ class _LossModule(nn.Module):
 
 
 def distribute(model: nn.Module, loss_fn: Callable, strategy: str,
-               batch_size: int, device, blocks=()):
+               batch_size: int, device, blocks=(), microbatches: int = 0):
     """Lay ``model`` out by ``strategy`` over the open process group.
 
     loss_fn(batch, draws, training=True, shard=None) -> (loss, breakdown)
     on this rank's rows of a global batch of ``batch_size`` rows.
-    blocks: the trunk blocks FSDP makes units of.  Returns (loss_fn of
-    (batch, draws, training=True) through the wrapped model, Layout).
-    Without a group: the one-device loss and an empty Layout."""
+    blocks: the trunk blocks FSDP makes units of.  microbatches: the pp
+    strategies' M (0 = ``pp.auto_microbatches``); ``model`` is then the
+    MDLM's modules (``net``, ``sigma_embedder``), pruned to this rank's
+    stage.  Returns (loss_fn of (batch, draws, training=True) through the
+    wrapped model, Layout).  Without a group: the one-device loss and an
+    empty Layout."""
     check_strategy(strategy)
     shape = ptp.parse_tp_strategy(strategy)
+    pp_shape = ppp.parse_pp_strategy(strategy)
     if not dist.is_initialized():
-        if shape is not None and shape != (1, 1):
-            raise ValueError(f"trainer.strategy={strategy!r} needs "
-                             f"{shape[0] * shape[1]} ranks: launch it with "
-                             f"torchrun")
+        for s in (shape, pp_shape):
+            if s is not None and s != (1, 1):
+                raise ValueError(f"trainer.strategy={strategy!r} needs "
+                                 f"{s[0] * s[1]} ranks: launch it with "
+                                 f"torchrun")
         return (lambda b, d, training=True: loss_fn(b, d, training=training),
                 Layout())
     from torch.distributed.device_mesh import init_device_mesh
@@ -334,10 +349,13 @@ def distribute(model: nn.Module, loss_fn: Callable, strategy: str,
 
     dev = torch.device(device)
     world = dist.get_world_size()
-    n_data, n_model = shape if shape is not None else (world, 1)
+    n_data, n_model = (shape or pp_shape or (world, 1))
     if n_data * n_model != world:
         raise ValueError(f"trainer.strategy={strategy!r} needs "
                          f"{n_data * n_model} ranks; the group has {world}")
+    if pp_shape is not None:
+        return _distribute_pp(model, loss_fn, n_data, n_model, batch_size,
+                              dev, microbatches)
     if shape is not None:
         # dpNxtpM builds its (data, model) mesh and splits the projections
         # at any M, M = 1 too: the same modules and collectives
@@ -375,19 +393,58 @@ def distribute(model: nn.Module, loss_fn: Callable, strategy: str,
             layout)
 
 
-def global_norm(tensors, groups=None) -> torch.Tensor:
+def _distribute_pp(model, loss_fn, n_data: int, n_stage: int,
+                   batch_size: int, dev: torch.device, microbatches: int):
+    """``distribute``'s pipeline strategies: the (data, stage) mesh, this
+    rank's stage (``model`` pruned to it) and its rows."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dmesh = init_device_mesh(dev.type, (n_data, n_stage),
+                             mesh_dim_names=(ppp.DATA_AXIS, ppp.STAGE_AXIS))
+    data_group = dmesh.get_group(ppp.DATA_AXIS)
+    shard = pmesh.data_shard(batch_size, dmesh.get_local_rank(ppp.DATA_AXIS),
+                             n_data, data_group)
+    pipeline = ppp.Pipeline(
+        model["net"].cfg, n_stage, dmesh.get_local_rank(ppp.STAGE_AXIS),
+        microbatches or ppp.auto_microbatches(batch_size // n_data, n_stage),
+        dmesh.get_group(ppp.STAGE_AXIS), dev)
+    pipeline.prune(model)
+    layout = Layout(shard=shard, pipeline=pipeline,
+                    zero_group=data_group if n_data > 1 else None)
+    return (lambda b, d, training=True: loss_fn(b, d, training=training,
+                                                shard=shard)), layout
+
+
+def _sum_grads(params, group) -> None:
+    """Every gradient summed over ``group``, one all-reduce a dtype."""
+    by_dtype = {}
+    for p in params:
+        by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
+
+def global_norm(tensors, groups=None, across=None) -> torch.Tensor:
     """optax's ``global_norm``: each tensor's sum of squares (accumulated in
     float32) rounded to its dtype, their sum in the tensors' dtype when
     they share one, else in float32 (as JAX promotes a mixed sum), and its
     square root.  groups: per tensor, the group over which it is split
     (its float32 partial sum is summed over the group before rounding),
-    or None."""
+    or None.  across: a group whose ranks hold the other tensors (a
+    pipeline's stages): the float32 sums are summed over it."""
     dtypes = {t.dtype for t in tensors}
-    out = dtypes.pop() if len(dtypes) == 1 else torch.float32
+    out = (dtypes.pop() if len(dtypes) == 1 and across is None
+           else torch.float32)
     groups = groups or [None] * len(tensors)
     squares = [pmesh.all_sum(torch.sum(t.float() ** 2), g).to(t.dtype)
                .to(out) for t, g in zip(tensors, groups)]
-    return torch.sqrt(torch.stack(squares).sum())
+    total = torch.stack(squares).sum()
+    if across is not None:
+        total = pmesh.all_sum(total, across)
+    return torch.sqrt(total)
 
 
 def train_step(state: TrainState, loss_fn: Callable, batch: dict,
@@ -399,16 +456,26 @@ def train_step(state: TrainState, loss_fn: Callable, batch: dict,
     before clipping), all as device tensors (the global batch's values
     under a ``distribute`` layout)."""
     opt, layout = state.optimizer, state.layout
+    pipeline = layout.pipeline
     params = [p for g in opt.adamw.param_groups for p in g["params"]]
     opt.adamw.zero_grad(set_to_none=False)
     with torch.enable_grad():
         loss, breakdown = loss_fn(batch, draws)
-        # the gradient average over the data axis, times its size: the
-        # sum of the ranks' parts of the global loss
-        (loss * layout.data_world if layout.data_world > 1
-         else loss).backward()
+        if pipeline is not None:
+            # the schedule's backward, then the sum of the data ranks'
+            # parts of the global loss (no DDP: it would reduce per
+            # microbatch)
+            pipeline.backward(loss)
+            if layout.data_world > 1:
+                _sum_grads(params, layout.shard.group)
+        else:
+            # the gradient average over the data axis, times its size:
+            # the sum of the ranks' parts of the global loss
+            (loss * layout.data_world if layout.data_world > 1
+             else loss).backward()
     grads = [pfsdp.local(p.grad) for p in params]
-    grad_norm = global_norm(grads, [layout.norm_group(p) for p in params])
+    grad_norm = global_norm(grads, [layout.norm_group(p) for p in params],
+                            across=pipeline and pipeline.group)
     if opt.grad_clip and not grad_norm < opt.grad_clip:
         # optax: (g / norm) * max, each in the gradient's dtype
         for g in grads:
@@ -417,19 +484,26 @@ def train_step(state: TrainState, loss_fn: Callable, batch: dict,
         group["lr"] = opt.lr_at(state.step)
     opt.adamw.step()
     state.step += 1
-    metrics = {k: v.detach() for k, v in breakdown.items()}
-    metrics["loss"] = loss.detach()
+    metrics = _metrics(loss, breakdown)
     metrics = layout.reduce(metrics)
     metrics["grad_norm"] = grad_norm
+    return metrics
+
+
+def _metrics(loss, breakdown: dict) -> Optional[dict]:
+    """The breakdown and ``loss``, detached; None for a pipeline stage
+    without the loss."""
+    if loss is None:
+        return None
+    metrics = {k: v.detach() for k, v in breakdown.items()}
+    metrics["loss"] = loss.detach()
     return metrics
 
 
 @torch.no_grad()
 def eval_step(loss_fn: Callable, batch: dict, draws,
               layout: Optional[Layout] = None) -> dict:
-    loss, breakdown = loss_fn(batch, draws)
-    metrics = dict(breakdown)
-    metrics["loss"] = loss
+    metrics = _metrics(*loss_fn(batch, draws))
     return metrics if layout is None else layout.reduce(metrics)
 
 
@@ -444,6 +518,9 @@ def full_model_state(state: TrainState) -> dict:
     """The model's state dict with whole tensors (every rank takes part;
     the values are meant for rank 0's writer)."""
     layout = state.layout
+    if layout.pipeline is not None:
+        return (layout.pipeline.gather_state(state.model.state_dict())
+                if layout.data_root else {})
     if layout.fsdp_group is not None:
         from torch.distributed.checkpoint.state_dict import (
             StateDictOptions, get_model_state_dict)
@@ -461,8 +538,15 @@ def full_optimizer_state(state: TrainState) -> Optional[dict]:
     rank takes part."""
     layout, adamw = state.layout, state.optimizer.adamw
     if layout.zero_group is not None:
+        # to the data group's rank 0
         adamw.consolidate_state_dict(to=0)
-        return adamw.state_dict() if is_main_process() else None
+        if layout.pipeline is None:
+            return adamw.state_dict() if is_main_process() else None
+    if layout.pipeline is not None:
+        if not layout.data_root:
+            return None
+        sd = layout.pipeline.gather_optimizer(adamw.state_dict(), state.model)
+        return sd if is_main_process() else None
     sd = adamw.state_dict()
     if layout.fsdp_group is None and layout.tp is None:
         return sd
@@ -484,6 +568,17 @@ def load_full_state(state: TrainState, params: dict,
     ``full_optimizer_state``) into ``state``, each rank keeping its
     part."""
     layout, adamw = state.layout, state.optimizer.adamw
+    if layout.pipeline is not None:
+        pipeline = layout.pipeline
+        differ = sorted(set(pipeline.full_keys) ^ set(params))
+        if differ:
+            raise KeyError(f"checkpoint keys differ from the model's: "
+                           f"{differ[:4]}")
+        own = state.model.state_dict()
+        state.model.load_state_dict({k: params[k] for k in own}, strict=True)
+        adamw.load_state_dict(pipeline.local_optimizer(optimizer_sd,
+                                                        state.model))
+        return
     if layout.fsdp_group is None and layout.tp is None:
         state.model.load_state_dict(params, strict=True)
         adamw.load_state_dict(optimizer_sd)

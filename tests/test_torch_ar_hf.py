@@ -176,7 +176,8 @@ def test_jlm_checkpoint_fills_every_port_tensor(tmp_path):
 
 def test_incomplete_checkpoint_raises(tmp_path):
     """A missing key, a model deeper than the checkpoint, a checkpoint of
-    the other model type and an orbax directory all raise."""
+    the other model type and a directory that is neither a run nor an
+    orbax checkpoint all raise."""
     _, _, sd = _clm_hf()
     sd.pop("decoder.block.1.layer.2.DenseReluDense.wo.weight")
     with pytest.raises(KeyError, match="1 missing"):
@@ -186,5 +187,5 @@ def test_incomplete_checkpoint_raises(tmp_path):
         load_ar_params(_save(sd, "bare", tmp_path / "b.pt"), _port_clm(3))
     with pytest.raises(KeyError, match="missing"):
         load_ar_params(tmp_path / "b.pt", _port_jlm("sentence"))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(FileNotFoundError, match="orbax.*_METADATA"):
         load_ar_params(tmp_path, _port_clm())

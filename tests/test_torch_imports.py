@@ -44,7 +44,7 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 50  # every module was imported
+    assert int(res.stdout.split()[-1]) >= 88  # every module was imported
 
 
 def test_serving_modules_import_without_jax():
@@ -69,21 +69,24 @@ def test_serving_modules_import_without_jax():
 
 
 def test_parallel_modules_import_without_jax():
-    """``parallel/*`` by name (mesh, fsdp, tp, ring, multihost), with jax,
-    flax, optax and orbax blocked, and the distributed pieces they use
-    (the rank workers of the tests import the port alone)."""
+    """``parallel/*`` by name (mesh, fsdp, tp, pp, ring, multihost), with
+    jax, flax, optax and orbax blocked, and the distributed pieces they
+    use (the rank workers of the tests import the port alone)."""
     probe = ("import sys\n"
              "for m in ('jax', 'flax', 'optax', 'orbax', "
              "'orbax.checkpoint'):\n    sys.modules[m] = None\n"
              "import esmdiff_tpu_torch.parallel.mesh"
              ", esmdiff_tpu_torch.parallel.fsdp"
              ", esmdiff_tpu_torch.parallel.tp"
+             ", esmdiff_tpu_torch.parallel.pp"
              ", esmdiff_tpu_torch.parallel.ring"
              ", esmdiff_tpu_torch.parallel.multihost\n"
              "from esmdiff_tpu_torch.parallel.mesh import RowShard, "
              "init_from_env, shard_batch\n"
              "from esmdiff_tpu_torch.parallel.tp import TPGroup, "
              "shard_modules\n"
+             "from esmdiff_tpu_torch.parallel.pp import Pipeline, "
+             "parse_pp_strategy\n"
              "from esmdiff_tpu_torch.train.state import distribute\n"
              "assert not [m for m in sys.modules if m == 'esmdiff_tpu' or "
              "m.startswith('esmdiff_tpu.')]\n")
@@ -95,8 +98,9 @@ def test_parallel_modules_import_without_jax():
 def test_training_modules_import_without_jax():
     """The training slice's modules by name, with jax, flax, optax and
     orbax blocked: config, data, state, loop, the train CLI, the
-    checkpoint manager, the metric logger, the carry-over and
-    ``load_runtime``."""
+    checkpoint manager, the metric logger, the carry-over,
+    ``load_runtime``, the orbax reader and the tensor and fixture
+    helpers."""
     probe = ("import sys\n"
              "for m in ('jax', 'flax', 'optax', 'orbax', "
              "'orbax.checkpoint'):\n    sys.modules[m] = None\n"
@@ -105,7 +109,10 @@ def test_training_modules_import_without_jax():
              ", esmdiff_tpu_torch.train.loop, esmdiff_tpu_torch.cli.train"
              ", esmdiff_tpu_torch.utils.checkpoint"
              ", esmdiff_tpu_torch.utils.logging"
-             ", esmdiff_tpu_torch.convert.checkpoints\n"
+             ", esmdiff_tpu_torch.convert.checkpoints"
+             ", esmdiff_tpu_torch.convert.orbax"
+             ", esmdiff_tpu_torch.utils.tensor"
+             ", esmdiff_tpu_torch.utils.fixtures\n"
              "from esmdiff_tpu_torch.convert import (flax_names, "
              "load_flax_params, state_dict_to_flax)\n"
              "assert not [m for m in sys.modules if m == 'esmdiff_tpu' or "

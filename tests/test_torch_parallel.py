@@ -27,6 +27,7 @@ from esmdiff_tpu_torch.convert import checkpoints, flax_to_state_dict
 from esmdiff_tpu_torch.core import constants as C
 from esmdiff_tpu_torch.models.vqvae import DecoderConfig, EncoderConfig
 from esmdiff_tpu_torch.parallel import mesh as pmesh
+from esmdiff_tpu_torch.parallel import pp as ppp
 from esmdiff_tpu_torch.train import data as tdata
 from esmdiff_tpu_torch.train import state as tstate
 from esmdiff_tpu_torch.train import vqvae as tvq
@@ -300,7 +301,17 @@ def test_indivisible_batch_and_missing_ranks_raise():
 
 @pytest.mark.parametrize("strategy", ["pp2", "dp2xpp2"])
 def test_pipeline_strategies_raise(strategy):
-    with pytest.raises(NotImplementedError, match="pipeline.*next slice"):
-        tstate.check_strategy(strategy)
+    """The pipeline strategies are known (they run: tests/test_torch_pp.py)
+    but raise without their ranks, for a task other than mdlm (as JAX's)
+    and for a batch that does not divide by data x M; an unknown strategy
+    raises."""
+    tstate.check_strategy(strategy)
+    n = 2 if strategy == "pp2" else 4
+    with pytest.raises(ValueError, match=f"needs {n} ranks"):
+        tstate.distribute(torch.nn.Linear(2, 2), None, strategy, 4, "cpu")
+    with pytest.raises(ValueError, match="task_name=mdlm only"):
+        ppp.check_training("clm", 0, 4, strategy)
+    with pytest.raises(ValueError, match="pp_microbatches=3"):
+        ppp.check_training("mdlm", 0, 4 * n, strategy, microbatches=3)
     with pytest.raises(ValueError, match="unknown strategy"):
         tstate.check_strategy("zero3")

@@ -195,12 +195,15 @@ def test_vqvae_ckpt_alone_exits(tmp_path):
 
 
 def test_orbax_directories_raise_not_ported(tmp_path):
+    """A directory that is neither a run of the port nor an orbax
+    checkpoint (no ``_METADATA``) raises for --ckpt and --runtime_ckpt
+    (the JAX package's orbax runs load: tests/test_torch_orbax.py)."""
     orbax = tmp_path / "orbax_run"
     (orbax / "params").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(FileNotFoundError, match="orbax.*_METADATA"):
         cli.main(["--ckpt", str(orbax), "--output", str(tmp_path / "o"),
                   "--model_scale", "tiny", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(FileNotFoundError, match="orbax.*_METADATA"):
         cli.main(["--runtime_ckpt", str(orbax), "--output",
                   str(tmp_path / "o"), "--device", "cpu"])
 

@@ -181,15 +181,28 @@ def jax_tiny_mdlm():
 def jax_strategy_run(jm, params, batch, strategy: str, packed_segments=0,
                      keys=STEP_KEYS, optim=STEP_OPTIM):
     """JAX's sharded train step under ``strategy`` (ddp | zero2 | fsdp on a
-    2-device data mesh, dpNxtpM on the 2-D mesh), one step a key:
-    (losses, grad norms, final params as the port's state dict)."""
+    2-device data mesh, dpNxtpM on the 2-D mesh, dpNxppS / ppS on the
+    (data, stage) mesh with the automatic M, as its trainer builds them),
+    one step a key: (losses, grad norms, final params as the port's state
+    dict)."""
     from esmdiff_tpu.parallel import mesh as jmesh
+    from esmdiff_tpu.parallel import pp as jpp
     from esmdiff_tpu.parallel import tp as jtp
     from esmdiff_tpu.train import state as jstate
     from esmdiff_tpu_torch.convert import flax_to_state_dict
 
     shape = jtp.parse_tp_strategy(strategy)
-    mesh = (jtp.make_2d_mesh(*shape) if shape else jmesh.make_mesh(2))
+    pp_shape = jpp.parse_pp_strategy(strategy)
+    n_valid = None
+    if pp_shape:
+        B = len(next(iter(batch.values())))
+        mesh = jpp.make_pp_mesh(*pp_shape)
+        jm.trunk_apply = jpp.mdlm_pp_trunk_apply(
+            jm.net, mesh, jpp.auto_microbatches(B // pp_shape[0],
+                                                pp_shape[1]))
+        params, n_valid = jpp.pad_tree_blocks(params, pp_shape[1])
+    else:
+        mesh = (jtp.make_2d_mesh(*shape) if shape else jmesh.make_mesh(2))
     opt = jstate.make_optimizer(**optim)
     if packed_segments:
         def loss(p, b, k):
@@ -198,17 +211,24 @@ def jax_strategy_run(jm, params, batch, strategy: str, packed_segments=0,
         def loss(p, b, k):
             return jm.loss(p, b, k)
     losses, norms = [], []
-    with mesh:
-        state = jstate.create_sharded_train_state(params, opt, mesh,
-                                                  strategy=strategy)
-        sb = (jtp.shard_batch_2d(batch, mesh) if shape
-              else jmesh.shard_batch(batch, mesh))
-        step = jstate.make_train_step(loss, opt, mesh=mesh, donate=False)
-        for k in keys:
-            state, m = step(state, sb, jax.random.PRNGKey(k))
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
-    return losses, norms, flax_to_state_dict(jax.device_get(state.params))
+    try:
+        with mesh:
+            state = jstate.create_sharded_train_state(params, opt, mesh,
+                                                      strategy=strategy)
+            sb = (jtp.shard_batch_2d(batch, mesh) if shape
+                  else jmesh.shard_batch(batch, mesh))
+            step = jstate.make_train_step(loss, opt, mesh=mesh,
+                                          donate=False)
+            for k in keys:
+                state, m = step(state, sb, jax.random.PRNGKey(k))
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+    finally:
+        jm.trunk_apply = None
+    final = jax.device_get(state.params)
+    if n_valid is not None:
+        final = jpp.unpad_tree_blocks(final, n_valid)
+    return losses, norms, flax_to_state_dict(final)
 
 
 def record_step_draws(batch, keys=STEP_KEYS, packed_segments=0):

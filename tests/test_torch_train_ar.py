@@ -280,5 +280,5 @@ def test_sample_ar_ckpt_shape_mismatch_names_the_keys(dumped, tmp_path):
     for k, v in load_params(step).items():
         assert torch.equal(model.state_dict()[k], v), k
     (tmp_path / "orbax" / "params").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="orbax.*not ported"):
+    with pytest.raises(FileNotFoundError, match="orbax.*_METADATA"):
         checkpoints.load_ar_params(tmp_path / "orbax", model)

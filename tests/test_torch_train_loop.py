@@ -235,19 +235,22 @@ def test_sample_with_ckpt_writes_a_pdb(smoke_run, tmp_path):
 
 
 @pytest.mark.parametrize("override,error,match", [
-    ("trainer.strategy=pp2", NotImplementedError, "pipeline.*not ported"),
-    ("trainer.strategy=dp2xpp2", NotImplementedError, "pipeline.*not ported"),
+    ("trainer.strategy=pp2 data.pack_len=64", ValueError, "pack_len"),
+    ("trainer.strategy=dp2xpp2 trainer.pp_microbatches=3", ValueError,
+     "not divisible by pp_microbatches=3"),
     ("trainer.multihost=true", RuntimeError, "multihost needs torchrun"),
     ("trainer.strategy=dp2xtp2", ValueError, "needs 4 ranks"),
 ])
 def test_unported_training_raises(corpus, tmp_path, override, error, match):
-    """Pipeline parallelism is not ported yet; trainer.multihost without
-    torchrun's environment and a tensor-parallel strategy without its
-    ranks raise (the strategies that run: tests/test_torch_parallel.py,
-    tests/test_torch_tp.py)."""
+    """What the trainer refuses, as JAX's: a pp strategy with packed rows
+    or a batch that does not divide by data x pp_microbatches;
+    trainer.multihost without torchrun's environment and a
+    tensor-parallel strategy without its ranks raise (the strategies that
+    run: tests/test_torch_parallel.py, tests/test_torch_tp.py,
+    tests/test_torch_pp.py)."""
     cfg = tconfig.load_config(None, [f"data.path={corpus}", *TINY,
                                      f"trainer.ckpt_dir={tmp_path}/run",
-                                     override])
+                                     *override.split()])
     with pytest.raises(error, match=match):
         train(cfg, device="cpu")
     if error is not ValueError:  # raised before anything is written
@@ -280,9 +283,11 @@ def test_pretrained_ckpt_loads(corpus, tmp_path):
 
 
 def test_unported_loading_raises(smoke_run, tmp_path):
-    """A JAX package's orbax VQ-VAE directory (vqvae.json beside
-    ``params/``) as --vqvae_ckpt and its orbax run directories raise "not
-    ported"; an unknown remat_policy raises ("dots" is ported:
+    """A VQ-VAE directory whose ``params/`` is no orbax checkpoint (no
+    ``_METADATA``) as --vqvae_ckpt, and a directory that is neither a run
+    of the port nor an orbax checkpoint, raise FileNotFoundError (the JAX
+    package's orbax directories load: tests/test_torch_orbax.py); an
+    unknown remat_policy raises ("dots" is ported:
     tests/test_torch_train_switches.py).  A PyTorch trunk file loads: its
     trunk equals the file's."""
     _, run = smoke_run
@@ -290,11 +295,11 @@ def test_unported_loading_raises(smoke_run, tmp_path):
     (jax_vq / "params").mkdir(parents=True)
     (jax_vq / "vqvae.json").write_text(
         '{"encoder_cfg": {}, "decoder_cfg": {"scan_layers": true}}')
-    with pytest.raises(NotImplementedError, match="orbax.*not ported"):
+    with pytest.raises(FileNotFoundError, match="orbax.*_METADATA"):
         checkpoints.load_runtime(run / "ckpt", vqvae_ckpt=str(jax_vq),
                                  device="cpu")
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="orbax.*not ported"):
+    with pytest.raises(FileNotFoundError, match="orbax.*_METADATA"):
         checkpoints.load_runtime(tmp_path / "orbax", device="cpu")
     trunk, _ = _release_fixture(tmp_path / "trunk.pt")
     runtime = checkpoints.load_runtime(tmp_path / "trunk.pt", device="cpu")

@@ -7,8 +7,9 @@ exports; the sampling CLI (and the server's ``build_runtime``) pairs the
 export with a tiny MDLM run of ``configs/mdlm_smoke.yaml``: the runtime's
 encoder and decoder hold the saved tensors bit for bit and the PDB is
 finite.  ``--vqvae_ckpt`` without ``--ckpt`` exits; a ``vqvae.json`` as
-the JAX package writes it loads its geometry; its orbax directory raises
-"not ported"."""
+the JAX package writes it loads its geometry; a ``params/`` that is no
+orbax checkpoint raises (the JAX package's load:
+tests/test_torch_orbax.py)."""
 
 import dataclasses
 import json
@@ -153,7 +154,8 @@ def test_vqvae_ckpt_without_ckpt_exits(vq_export, tmp_path):
 def test_jax_vqvae_json_loads_geometry(tmp_path):
     """``vqvae.json`` as the JAX package's ``save_vqvae`` writes it
     (``dataclasses.asdict`` of its configs, ``scan_layers`` included):
-    the same geometry; the JAX directory's orbax ``params/`` raises."""
+    the same geometry; a ``params/`` without orbax's ``_METADATA``
+    raises."""
     for enc_kw, dec_kw in ((dict(), dict(predict_ptm=False, remat=True)),
                            (dict(d_model=64, n_heads=2, v_heads=8, d_out=16,
                                  n_codes=256, knn=8),
@@ -170,7 +172,7 @@ def test_jax_vqvae_json_loads_geometry(tmp_path):
         want.pop("scan_layers")
         assert dataclasses.asdict(dec_cfg) == want
     (tmp_path / "params").mkdir()
-    with pytest.raises(NotImplementedError, match="orbax.*not ported"):
+    with pytest.raises(FileNotFoundError, match="orbax.*_METADATA"):
         checkpoints.load_vqvae(tmp_path)
 
 

@@ -98,7 +98,8 @@ def steps_job(job):
     and (rank 0) the final parameters; with
     ``job["ckpt"]``, the state saved there after the steps; with
     ``job["resume"]``, restored from ``job["resume_step"]`` first; with
-    ``job["param_dtype"]``, the parameters held in it (``cast_params``)."""
+    ``job["param_dtype"]``, the parameters held in it (``cast_params``);
+    ``job["microbatches"]``: the pp strategies' M."""
     import numpy as np
     import torch
 
@@ -126,7 +127,8 @@ def steps_job(job):
     B = len(next(iter(batch.values())))
     step_loss, layout = tstate.distribute(
         modules, loss_fn, job["strategy"], B, "cpu",
-        blocks=mdlm.net.transformer.blocks)
+        blocks=mdlm.net.transformer.blocks,
+        microbatches=job.get("microbatches", 0))
     state = tstate.create_train_state(modules, tstate.make_optimizer(
         modules.parameters(), layout=layout, **job["optim"]), layout)
     records = torch.load(job["records"], weights_only=False)
@@ -214,6 +216,84 @@ def tp_forward_job(job):
                       for n, p in trunk.named_parameters()}}
 
 
+def pp_forward_job(job):
+    """The trunk of ``job["inputs"]`` as the pipeline stages of
+    ``job["strategy"]`` over the ranks (every data row runs the whole
+    batch): the last stage's structure logits, and the gradients of the
+    mean cross-entropy of the inputs' labels joined on each row's stage
+    0; each rank's blocks."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from torch import nn
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from esmdiff_tpu_torch.models.esm3 import ESM3, esm3_tiny
+    from esmdiff_tpu_torch.parallel import pp as ppp
+
+    x = torch.load(job["inputs"], weights_only=True)
+    trunk = ESM3(esm3_tiny(**job["trunk"]))
+    trunk.load_state_dict(x["params"])
+    n_stage = ppp.parse_pp_strategy(job["strategy"])[1]
+    dmesh = init_device_mesh("cpu", (dist.get_world_size() // n_stage,
+                                     n_stage),
+                             mesh_dim_names=(ppp.DATA_AXIS, ppp.STAGE_AXIS))
+    pipe = ppp.Pipeline(trunk.cfg, n_stage,
+                        dmesh.get_local_rank(ppp.STAGE_AXIS),
+                        job["microbatches"], dmesh.get_group(ppp.STAGE_AXIS))
+    modules = pipe.prune(nn.ModuleDict({"net": trunk}))
+    out = trunk(structure_tokens=x["structure_tokens"],
+                sequence_tokens=x["sequence_tokens"], lengths=x["lengths"])
+    loss = None
+    if pipe.last:
+        logits = out.structure_logits.float()
+        loss = F.cross_entropy(logits.flatten(0, 1), x["labels"].flatten())
+    pipe.backward(loss)
+    return {"logits": None if out is None else
+            out.structure_logits.detach(), "blocks": pipe.blocks,
+            "grads": pipe.gather_state({
+                n: torch.zeros_like(p) if p.grad is None else p.grad
+                for n, p in modules.named_parameters()})}
+
+
+def ar_steps_job(job):
+    """``len(job["batches"])`` train steps of the CLM or JLM of
+    ``job["overrides"]`` (the train config's) under ``job["strategy"]``,
+    from the state dict ``job["params"]``, one global batch (.npz) a step:
+    the metrics of each step, (rank 0) the final parameters and the
+    number of modules split by tensor parallelism."""
+    import numpy as np
+    import torch
+
+    from esmdiff_tpu_torch.parallel import mesh as pmesh
+    from esmdiff_tpu_torch.train import config as tconfig
+    from esmdiff_tpu_torch.train import loop as tloop
+    from esmdiff_tpu_torch.train import state as tstate
+    from esmdiff_tpu_torch.utils.logging import is_main_process
+
+    cfg = tconfig.load_config(None, job["overrides"])
+    model, loss_fn = tloop.build_task(cfg, "cpu", emb_dim=job["emb_dim"])
+    model.load_state_dict(torch.load(job["params"], weights_only=True))
+    batches = [dict(np.load(b)) for b in job["batches"]]
+    B = len(next(iter(batches[0].values())))
+    step_loss, layout = tstate.distribute(
+        model, loss_fn, job["strategy"], B, "cpu",
+        blocks=tloop.fsdp_units(model))
+    state = tstate.create_train_state(model, tstate.make_optimizer(
+        model.parameters(), layout=layout, **job["optim"]), layout)
+    out = {"metrics": []}
+    for b in batches:
+        m = tstate.train_step(state, step_loss, tloop.to_device(
+            pmesh.shard_batch(b, layout.shard), "cpu"), None)
+        out["metrics"].append({k: v.item() for k, v in m.items()})
+    full = tstate.full_model_state(state)
+    if is_main_process():
+        out["params"] = {k: v.detach().cpu().clone() for k, v in full.items()}
+    out["tp_modules"] = sum(getattr(m, "tp", None) is not None
+                            for m in model.modules())
+    return out
+
+
 def vqvae_job(job):
     """``train_vqvae(data_parallel=True)`` on the arrays of
     ``job["corpus"]`` with the starting state dict ``job["params"]``."""
@@ -238,7 +318,8 @@ def vqvae_job(job):
 
 JOBS = {"steps": steps_job, "train_cli": train_cli_job, "ring": ring_job,
         "vqvae": vqvae_job, "tp_forward": tp_forward_job,
-        "multihost": multihost_job}
+        "multihost": multihost_job, "pp_forward": pp_forward_job,
+        "ar_steps": ar_steps_job}
 
 
 def main(spec_path):
