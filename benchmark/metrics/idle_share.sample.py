@@ -1,0 +1,13 @@
+"""idle_share.sample: The share of the traced request's window in which no kernel, copy or fill
+ran on the card (the union of their intervals)."""
+
+UNIT = "%"
+LAYER = "device"
+MOVES = "conf_per_s"
+
+
+def read(ctx: dict):
+    tr = ctx.get("trace")
+    if tr is None or ctx["trace"].window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
