@@ -1,0 +1,15 @@
+"""idle_data.train: Idle seconds of the traced steps' card put down to
+the program's ``train.data`` and ``train.h2d`` spans (the innermost
+``train.*`` span open when each gap began, ``benchmark/program.py``),
+over the traced window's seconds."""
+
+from benchmark import program
+
+UNIT = "%"
+LAYER = "trainer data"
+MOVES = "train_tokens_per_s"
+
+
+def read(ctx: dict):
+    return program.idle_share(
+        ctx, lambda n: n in ("train.data", "train.h2d"), program.training)

@@ -251,6 +251,7 @@ import urllib.request
 from pathlib import Path
 
 from esmdiff_tpu_torch.tools.timing import device_ms, host_ms
+from esmdiff_tpu_torch.utils import tracing
 
 ROOT = Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, SXM, 700 W
@@ -277,12 +278,24 @@ INPAINT_SPANS = {"bpti": range(10, 25), "1jm4.B": range(40, 58)}
 # probe prints batch 32's peak over two steps; PERF.md, tokenizer)
 VQ_DIRS, VQ_STEPS, VQ_BATCH, VQ_PROBE = ("apo", "codnas", "ped"), 20, 16, 32
 KERNELS = ("flash_attention", "small_attention", "fused_qkv", "fused_ffn")
+# each kernel module's launch counter (utils/tracing.py)
+LAUNCH_COUNTERS = {"flash_attention": "flash.launches",
+                   "small_attention": "small_attention.launches",
+                   "fused_qkv": "fused_qkv.launches",
+                   "fused_ffn": "fused_ffn.launches",
+                   "quant": "int8_mm.launches"}
 REPLACES = {
     "flash_attention": "esmdiff_tpu/ops/flash_attention.py:37",
     "small_attention": "esmdiff_tpu/ops/small_attention.py:55",
     "fused_qkv": "esmdiff_tpu/ops/fused_qkv.py:41",
     "fused_ffn": "esmdiff_tpu/ops/fused_ffn.py:34",
 }
+
+
+def launches_of(op) -> int:
+    """Launches so far of the kernel of ``op`` (an ``ops`` module): its
+    counter in ``utils/tracing.py``."""
+    return tracing.counter(LAUNCH_COUNTERS[op.__name__.rsplit(".", 1)[1]])
 
 
 def bound(flops, nbytes, fp32_flops=0.0):
@@ -549,9 +562,10 @@ def kernel_vs_plain(torch, runtime, kernel, plain, other,
     ops = {module for module, _ in plain}
     logits = []
     for patches in (kernel, plain, other):
-        before = sum(op.launches for op in ops)
+        before = sum(launches_of(op) for op in ops)
         logits.append(trunk_logits(torch, runtime, patches, forward))
-        if (sum(op.launches for op in ops) > before) != (patches is kernel):
+        launched = sum(launches_of(op) for op in ops) > before
+        if launched != (patches is kernel):
             raise AssertionError("the logits gate's patches missed the "
                                  "kernels' call sites")
 
@@ -608,10 +622,9 @@ def drive(torch, runtime, ops, name, targets, out_dir, mode="ddpm",
     for key, (directory, expected) in targets.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for op in ops.values():
-            op.launches = 0
+        start = {k: launches_of(op) for k, op in ops.items()}
         report = run_cli([directory], out_dir / key, num_steps)[0]
-        launches = {k: op.launches for k, op in ops.items()}
+        launches = {k: launches_of(op) - start[k] for k, op in ops.items()}
         if callable(expected):
             expected = expected(report)
         if launches != expected:
@@ -637,13 +650,13 @@ def check_int8_dot(torch, quant, dense, w_bf16, T, gen):
     kq, scale = dense.kernel_q, dense.scale
     F_out, D = kq.shape
     x = torch.randn(T, D, device="cuda", generator=gen).to(torch.bfloat16)
-    before = quant.launches
+    before = launches_of(quant)
     out = quant.int8_dot(x, kq, scale)
     xq, sa = quant.quantize_activations(x)
     ref = (quant.int8_mm_reference(xq, kq).float() * sa * scale).to(
         torch.bfloat16)
     torch.cuda.synchronize()
-    if quant.launches != before + 1 or not torch.equal(out, ref):
+    if launches_of(quant) != before + 1 or not torch.equal(out, ref):
         raise AssertionError(f"int8_dot at T {T}, ({F_out}, {D}): not bit "
                              f"for bit its plain version")
     # int8 operations at their peak against the bytes: x bf16 in, kq int8,
@@ -995,9 +1008,9 @@ def serve_path(torch, runtime, ops, card, gen):
     toks = torch.randint(4, 24, (B, L), device="cuda", generator=gen)
     lengths = torch.randint(20, L - 1, (B,), device="cuda",
                             dtype=torch.int32, generator=gen)
-    fa_before = fa.launches
+    fa_before = launches_of(fa)
     packed = int8_logits(torch, fa, trunk, toks, lengths, pack=2)
-    if fa.launches != fa_before:
+    if launches_of(fa) != fa_before:
         raise AssertionError("packed rows reached the flash kernel")
     kernel = int8_logits(torch, fa, trunk, toks, lengths)
     plain = int8_logits(torch, fa, trunk, toks, lengths,
@@ -1067,13 +1080,14 @@ def serve_path(torch, runtime, ops, card, gen):
             "int8_products": 4 * n_layers * (NUM_STEPS + 1) * len(plan)}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for op in (*ops.values(), quant):
-            op.launches = 0
+        start = {k: launches_of(op) for k, op in ops.items()}
+        start_int8 = launches_of(quant)
         status, reply = post(url + "/sample", {
             "sequence": bpti, "num_samples": NUM_SAMPLES, "mode": "ddpm",
             "num_steps": NUM_STEPS, "seed": 0, "format": "pdb"})
-        launches = {k: op.launches for k, op in ops.items()}
-        bpti_launches = {**launches, "int8_products": quant.launches}
+        launches = {k: launches_of(op) - start[k] for k, op in ops.items()}
+        bpti_launches = {**launches,
+                         "int8_products": launches_of(quant) - start_int8}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         if status != 200:
             raise AssertionError(f"/sample BPTI: {status} {reply}")
@@ -1102,14 +1116,14 @@ def serve_path(torch, runtime, ops, card, gen):
                     pack_factor(b, bucket_length(n)) == 1
                     for b in plan_batches(n, n_each,
                                           max_batch=args.max_batch))
-        fa_before = fa.launches
+        fa_before = launches_of(fa)
         t0 = time.time()
         replies = coalesced_posts(url + "/sample", service, [
             {"sequence": residues(n), "num_samples": n_each, "mode": "ddpm",
              "num_steps": NUM_STEPS, "seed": i, "format": "tokens"}
             for i, n in enumerate(lens)])
         group_s = time.time() - t0
-        group_launches = fa.launches - fa_before
+        group_launches = launches_of(fa) - fa_before
         for n, (status, body) in zip(lens, replies):
             shape = np.asarray(body.get("tokens", [])).shape
             if (status != 200 or body.get("coalesced") != 3
@@ -1129,14 +1143,14 @@ def serve_path(torch, runtime, ops, card, gen):
                 pack_factor(b, bucket_length(n)) == 1
                 for b in plan_batches(n, n_each, max_batch=args.max_batch))
             for n in lws)
-        fa_before = fa.launches
+        fa_before = launches_of(fa)
         t0 = time.time()
         replies = coalesced_posts(url + "/sample", service, [
             {"sequence": residues(n), "num_samples": n_each, "mode": "gibbs",
              "num_steps": GIBBS_STEPS, "seed": i, "format": "tokens"}
             for i, n in enumerate(lens)])
         gibbs_group_s = time.time() - t0
-        gibbs_group_launches = fa.launches - fa_before
+        gibbs_group_launches = launches_of(fa) - fa_before
         for n, (status, body) in zip(lens, replies):
             toks = np.asarray(body.get("tokens", []))
             if (status != 200 or body.get("coalesced") != 3
@@ -1150,13 +1164,13 @@ def serve_path(torch, runtime, ops, card, gen):
                                  f"{gibbs_group_launches} flash launches, "
                                  f"expected {want_gibbs}")
         eb_len = 120
-        fa_before = fa.launches
+        fa_before = launches_of(fa)
         t0 = time.time()
         status, eb_reply = post(url + "/sample", {
             "sequence": residues(eb_len), "num_samples": n_each,
             "mode": "eb", "seed": 0, "format": "pdb"})
         eb_s = time.time() - t0
-        eb_launches = fa.launches - fa_before
+        eb_launches = launches_of(fa) - fa_before
         if status != 200:
             raise AssertionError(f"/sample eb: {status} {eb_reply}")
         check_pdb(eb_reply["pdb"], n_each, n_each * (eb_len * 4 - 1),
@@ -1345,7 +1359,7 @@ def inpaint_path(torch, runtime, stock_rt, ops, target_dirs, lws, card):
 
     # encode ms per target (warm: one untimed call first), no kernel
     encode_ms, priors = {}, {}
-    fa_before = fa.launches
+    fa_before = launches_of(fa)
     for key, prot in prots.items():
         runtime.encode(prot)
         torch.cuda.synchronize()
@@ -1361,7 +1375,7 @@ def inpaint_path(torch, runtime, stock_rt, ops, target_dirs, lws, card):
                       for i, ch in enumerate(prot.sequence))
         priors[key] = {"ddpm": ddpm_prior, "gibbs": runtime.encode(
             ESMProtein(seq, coords)).structure[1:-1]}
-    if fa.launches != fa_before:
+    if launches_of(fa) != fa_before:
         raise AssertionError("the encoder launched the flash kernel")
     card_vs_cpu = encoder_card_vs_cpu(
         torch, runtime.encoder,
@@ -1384,8 +1398,7 @@ def inpaint_path(torch, runtime, stock_rt, ops, target_dirs, lws, card):
         name = f"{mode} {key} {flag}"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for op in ops.values():
-            op.launches = 0
+        start = {k: launches_of(op) for k, op in ops.items()}
         method = "ddpm_ensemble" if mode == "ddpm" else "gibbs_ensemble"
         with recorded(EnsembleSampler, method) as outputs:
             report = cli.main(
@@ -1394,7 +1407,8 @@ def inpaint_path(torch, runtime, stock_rt, ops, target_dirs, lws, card):
                  "--num_steps", str(steps), "--num_samples",
                  str(NUM_SAMPLES), "--seed", "0", flag,
                  ",".join(map(str, ids))], runtime=rt)[0]
-        run_launches = {k: op.launches for k, op in ops.items()}
+        run_launches = {k: launches_of(op) - start[k]
+                        for k, op in ops.items()}
         plan_forwards = ([NUM_STEPS + 1] * 2 if mode == "ddpm"
                          else [GIBBS_STEPS] * 2)
         want = path_launches(trunk_cfg, dec_layers, lws[key], False,
@@ -1451,7 +1465,7 @@ def inpaint_path(torch, runtime, stock_rt, ops, target_dirs, lws, card):
     serve_numbers = {}
     try:
         for mode in ("ddpm", "gibbs"):
-            fa_before = fa.launches
+            fa_before = launches_of(fa)
             t0 = time.time()
             status, reply = post(url, {
                 "pdb": pdb_text, "mode": mode, "mask_ids": spans["bpti"],
@@ -1465,9 +1479,9 @@ def inpaint_path(torch, runtime, stock_rt, ops, target_dirs, lws, card):
                       f"/sample inpainting {mode}")
             # BPTI's ladder plan packs every batch: flash in the decoder
             want = dec_layers * -(-NUM_SAMPLES // DECODE_BATCH)
-            if fa.launches - fa_before != want:
+            if launches_of(fa) - fa_before != want:
                 raise AssertionError(f"/sample inpainting {mode}: "
-                                     f"{fa.launches - fa_before} flash "
+                                     f"{launches_of(fa) - fa_before} flash "
                                      f"launches, expected {want}")
             launches["flash_attention"] += want
             serve_numbers[mode] = {"request_s": request_s,
@@ -1483,12 +1497,12 @@ def inpaint_path(torch, runtime, stock_rt, ops, target_dirs, lws, card):
         thread.join(timeout=60)
 
     # cli.dump of BPTI with embeddings: one trunk forward (flash per layer)
-    fa_before = fa.launches
+    fa_before = launches_of(fa)
     dump_dir = ROOT / "output" / "chip_smoke_dump"
     if dump_cli.main([str(target_dirs["bpti"]), str(dump_dir),
                       "--with_embeddings"], runtime=runtime) != 1:
         raise AssertionError("cli.dump wrote no encoding")
-    dump_launches = fa.launches - fa_before
+    dump_launches = launches_of(fa) - fa_before
     with np.load(dump_dir / "bpti.npz") as z:
         dumped = {k: z[k] for k in z.files}
     lw = lws["bpti"]
@@ -1526,11 +1540,11 @@ def stepped(torch, module, name, fa, out):
     def wrapped(*args, **kwargs):
         batch = next(a for a in args if isinstance(a, dict))
         torch.cuda.synchronize()
-        before, t0 = fa.launches, time.perf_counter()
+        before, t0 = launches_of(fa), time.perf_counter()
         metrics = orig(*args, **kwargs)
         torch.cuda.synchronize()
         out.append({"ms": 1e3 * (time.perf_counter() - t0),
-                    "flash": fa.launches - before,
+                    "flash": launches_of(fa) - before,
                     "real_tokens": int(batch["mask"].sum().item()),
                     "padded_tokens": batch["mask"].numel(),
                     "shape": list(batch["mask"].shape),
@@ -1658,7 +1672,7 @@ def train_kernel_vs_plain(torch, fa, corpus, failures):
         for block in mdlm.net.transformer.blocks:
             block.attn.attn_backend = backend
         saved, fa.flash_attention = fa.flash_attention, flash
-        before = fa.launches
+        before = launches_of(fa)
         try:
             modules.zero_grad(set_to_none=True)
             with torch.enable_grad():
@@ -1668,7 +1682,7 @@ def train_kernel_vs_plain(torch, fa, corpus, failures):
         finally:
             fa.flash_attention = saved
         return loss.item(), captured.pop("logits").float(), \
-            fa.launches - before
+            launches_of(fa) - before
 
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item()
@@ -1746,7 +1760,7 @@ def train_path(torch, runtime, ops, card):
     # 1. the corpus: every chain under data/targets/{apo,codnas,ped}
     # through the full-width random-weight encoder (cli.dump)
     t0 = time.time()
-    before = fa.launches
+    before = launches_of(fa)
     dirs = [ROOT / "data/targets" / d for d in ("apo", "codnas", "ped")]
     n_files = sum(len(list(d.glob("*.pdb"))) for d in dirs)
     n_chains = sum(dump_cli.main([str(d), str(corpus)], runtime=runtime)
@@ -1758,7 +1772,7 @@ def train_path(torch, runtime, ops, card):
     corpus_numbers = {"chains": n_chains, "files": n_files,
                       "min_L": min(lengths), "max_L": max(lengths),
                       "residues": sum(lengths), "s": time.time() - t0,
-                      "flash_launches": fa.launches - before}
+                      "flash_launches": launches_of(fa) - before}
     if n_chains != n_files or len(lengths) != n_files or \
             corpus_numbers["flash_launches"]:
         failures.append(f"corpus: {corpus_numbers}")
@@ -1823,7 +1837,7 @@ def train_path(torch, runtime, ops, card):
 
     # 5. --ckpt: the CLI loads the unpacked run and samples BPTI
     t0 = time.time()
-    before = fa.launches
+    before = launches_of(fa)
     with recorded(checkpoints, "load_runtime") as loaded:
         report = sample_cli.main([
             "--ckpt", str(run / "ckpt"), "--mode", "ddpm", "--input",
@@ -1846,7 +1860,7 @@ def train_path(torch, runtime, ops, card):
                     "sampling_s": report["sampling_sec"],
                     "params_equal_bit_for_bit": not differ,
                     "params_compared": len(saved),
-                    "flash_launches": fa.launches - before,
+                    "flash_launches": launches_of(fa) - before,
                     "flash_launches_planned": want_ckpt}
     if ckpt_numbers["flash_launches"] != want_ckpt:
         failures.append(f"--ckpt sample launches {ckpt_numbers}")
@@ -1874,11 +1888,11 @@ def calls(torch, owner, name, fa, out):
 
     def wrapped(*args, **kwargs):
         torch.cuda.synchronize()
-        before, t0 = fa.launches, time.perf_counter()
+        before, t0 = launches_of(fa), time.perf_counter()
         result = orig(*args, **kwargs)
         torch.cuda.synchronize()
         out.append({"s": time.perf_counter() - t0,
-                    "flash": fa.launches - before, "args": args,
+                    "flash": launches_of(fa) - before, "args": args,
                     "result": result})
         return result
 
@@ -1960,7 +1974,7 @@ def vq_kernel_vs_plain(torch, fa, tvq, model, batch, failures):
         for block in blocks:
             block.attn.attn_backend = backend
         saved, fa.flash_attention = fa.flash_attention, flash
-        before = fa.launches
+        before = launches_of(fa)
         try:
             model.zero_grad(set_to_none=True)
             with torch.enable_grad():
@@ -1975,7 +1989,7 @@ def vq_kernel_vs_plain(torch, fa, tvq, model, batch, failures):
             for block in blocks:
                 block.attn.attn_backend = "auto"
         return loss.item(), out["bb_pred"].detach().float(), \
-            fa.launches - before
+            launches_of(fa) - before
 
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item()
@@ -2092,7 +2106,7 @@ def vqvae_path(torch, ops, card, gen, mdlm_ckpt):
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    before, t0 = fa.launches, time.time()
+    before, t0 = launches_of(fa), time.time()
     with calls(torch, tstate, "train_step", fa, steps), \
             calls(torch, tvq, "val_recon", fa, vals), \
             calls(torch, tvq, "gather_batch", fa, gathers), \
@@ -2103,7 +2117,7 @@ def vqvae_path(torch, ops, card, gen, mdlm_ckpt):
             "full", "--steps", str(VQ_STEPS), "--batch", str(batch),
             "--restart_every", "10", "--augment", "--seed", "0"])
     wall = time.time() - t0
-    train_launches = fa.launches - before
+    train_launches = launches_of(fa) - before
     train_gathers = [g for g in gathers if len(g["args"]) == 6]
     warm = steps[1:]
     warm_s = sum(r["s"] for r in warm)
@@ -2193,7 +2207,7 @@ def vqvae_path(torch, ops, card, gen, mdlm_ckpt):
 
     # 5. --vqvae_ckpt: the train path's trunk with the trained tokenizer
     t0 = time.time()
-    before = fa.launches
+    before = launches_of(fa)
     with recorded(checkpoints, "load_runtime") as loaded:
         report = sample_cli.main([
             "--ckpt", str(mdlm_ckpt), "--vqvae_ckpt", str(export), "--mode",
@@ -2216,7 +2230,7 @@ def vqvae_path(torch, ops, card, gen, mdlm_ckpt):
                       "sampling_s": report["sampling_sec"],
                       "params_equal_bit_for_bit": not differ,
                       "params_compared": len(saved),
-                      "flash_launches": fa.launches - before,
+                      "flash_launches": launches_of(fa) - before,
                       "flash_launches_planned": want}
     if sample_numbers["flash_launches"] != want:
         failures.append(f"--vqvae_ckpt sample launches {sample_numbers}")
@@ -2281,15 +2295,15 @@ def ar_request(torch, runtime, ops, argv, model_type, out):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for op in (*ops.values(), quant):
-        op.launches = 0
+    start = {k: launches_of(op) for k, op in ops.items()}
+    start_int8 = launches_of(quant)
     with recorded(sample_ar, "prepare_model") as models, \
             recorded(sample_ar, f"{model_type}_generate") as batches, \
             recorded(checkpoints, "load_runtime") as loaded:
         (report,) = sample_ar.main(
             [*argv, "--output", str(out), "--seed", "0"], runtime=runtime)
-    launches = {k: op.launches for k, op in ops.items()}
-    launches["int8"] = quant.launches
+    launches = {k: launches_of(op) - start[k] for k, op in ops.items()}
+    launches["int8"] = launches_of(quant) - start_int8
     runtime = runtime or loaded[0]
     n, lw = report["n_samples"], report["L"] + 2
     want = ar_launches(runtime, models[0].cfg, model_type, lw, n,
@@ -2789,13 +2803,12 @@ def eval_path(torch, ops, card, ensembles):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for op in ops.values():
-        op.launches = 0
+    start = {k: launches_of(op) for k, op in ops.items()}
     outputs, seconds = {}, {}
     for suite, args in argv.items():
         outputs[suite], seconds[suite] = analyze_run(
             torch, args, work / suite, "cuda")
-    launches = {k: op.launches for k, op in ops.items()}
+    launches = {k: launches_of(op) - start[k] for k, op in ops.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     if any(launches.values()):
         raise AssertionError(f"eval path: kernel launches {launches} (the "
@@ -3401,7 +3414,7 @@ def pipeline_dump(torch, fa, runtime, work, stems, failures):
         (npz / f"{stem}.npz").symlink_to(work / "npz_chain" / f"{stem}.npz")
         (pdbs / f"{stem}.pdb").symlink_to(pdb)
     dump = work / "dump"
-    fa.launches = 0
+    start = launches_of(fa)
     forwards, writes = [], []
     torch.cuda.synchronize()
     t0 = time.time()
@@ -3411,7 +3424,7 @@ def pipeline_dump(torch, fa, runtime, work, stems, failures):
                           runtime=runtime)
     torch.cuda.synchronize()
     s = time.time() - t0
-    flash = fa.launches
+    flash = launches_of(fa) - start
     t0 = time.time()
     dump_cli.main([str(pdbs), str(work / "dump_pdb")], runtime=runtime)
     ref_s = time.time() - t0
@@ -3599,7 +3612,7 @@ def pipeline_ar_sample(torch, fa, runtime, best, failures):
             return model
 
         checkpoints.load_ar_params = load
-        before = fa.launches
+        before = launches_of(fa)
         try:
             with recorded(sample_ar, f"{task}_generate") as batches:
                 (report,) = sample_ar.main([
@@ -3610,7 +3623,7 @@ def pipeline_ar_sample(torch, fa, runtime, best, failures):
                     runtime=runtime)
         finally:
             checkpoints.load_ar_params = orig
-        launched = fa.launches - before
+        launched = launches_of(fa) - before
         flash += launched
         pdb = out / f"{report['target']}.pdb"
         check_pdb(pdb.read_text(), n, n * (report["L"] * 4 - 1), str(pdb))
@@ -3666,12 +3679,12 @@ def switch_run(torch, fa, corpus, overrides, steps_n, want):
     for _ in range(steps_n):
         batch = train_loop.to_device(next(batches), dev)
         torch.cuda.synchronize()
-        before, t0 = fa.launches, time.perf_counter()
+        before, t0 = launches_of(fa), time.perf_counter()
         m = tstate.train_step(state, loss_fn, batch, draws)
         loss = m["loss"].item()
         torch.cuda.synchronize()
         records.append({"ms": 1e3 * (time.perf_counter() - t0),
-                        "flash": fa.launches - before, "loss": loss,
+                        "flash": launches_of(fa) - before, "loss": loss,
                         "shape": list(batch["mask"].shape)})
     warm = records[1:]
     numbers = {"overrides": overrides, "steps": len(records),
@@ -3713,12 +3726,12 @@ def pipeline_switches(torch, fa, corpus, train_numbers, failures):
     for policy in ("nothing", "dots"):
         stack.remat_kwargs = remat_kwargs(policy)
         state.model.zero_grad(set_to_none=True)
-        before = fa.launches
+        before = launches_of(fa)
         with torch.enable_grad():
             loss, _ = loss_fn(batch, GeneratorDraws(PIPELINE["device"],
                                                     seed=0))
             loss.backward()
-        flash += fa.launches - before
+        flash += launches_of(fa) - before
         grads[policy] = {n: p.grad.clone() if policy == "nothing"
                          else p.grad for n, p in
                          state.model.named_parameters() if p.grad is not None}
@@ -3780,7 +3793,7 @@ def pipeline_sweep(torch, fa, dump, failures):
                      "high: 1.0e-4}\n")
     out = PIPELINE_DIR / "sweep"
     trials, saves = [], []
-    before = fa.launches
+    before = launches_of(fa)
     t0 = time.time()
     with calls(torch, sweep_cli, "_run_trial", fa, trials), \
             timed_saves(torch, CheckpointManager, saves):
@@ -3797,7 +3810,7 @@ def pipeline_sweep(torch, fa, dump, failures):
     numbers = {"s": wall, "trial_s": [r["s"] for r in trials],
                "results": results,
                "best": best, "saves": saves,
-               "flash_launches": fa.launches - before}
+               "flash_launches": launches_of(fa) - before}
     ok = (len(rung0) == 2 and len(rung1) == 1
           and all(r.get("val_loss") is not None for r in results))
     if ok:
@@ -4161,12 +4174,12 @@ def parallel_path(torch, ops, card, l128_dir, device="cuda"):
         for key, extra in (("no_flag", []), ("data_parallel", [
                 "--data_parallel", "--profile",
                 str(PARALLEL_DIR / "trace")])):
-            before, t0 = fa.launches, time.time()
+            before, t0 = launches_of(fa), time.time()
             report = sample_cli.main(
                 [*args, "--output", str(PARALLEL_DIR / key), *extra])[0]
             pdb = PARALLEL_DIR / key / f"{report['target']}.pdb"
             sampled[key] = {"s": time.time() - t0, "L": report["L"],
-                            "flash": fa.launches - before,
+                            "flash": launches_of(fa) - before,
                             "pdb": pdb.read_text()}
             if key == "no_flag":
                 flash_plain += sampled[key]["flash"]
@@ -4197,13 +4210,13 @@ def parallel_path(torch, ops, card, l128_dir, device="cuda"):
         answers = {}
         for key, extra in (("no_flag", []),
                            ("data_parallel", ["--data_parallel"])):
-            before, t0 = fa.launches, time.time()
+            before, t0 = launches_of(fa), time.time()
             body, service = served(torch, server, [
                 "--ckpt", str(ckpt), "--mode", "ddpm", "--port", "0",
                 "--device", device, *extra], payload)
             answers[key] = {"tokens": body["tokens"],
                             "replicas": len(service.sampler.replicas),
-                            "flash": fa.launches - before,
+                            "flash": launches_of(fa) - before,
                             "s": time.time() - t0}
             if key == "no_flag":
                 flash_plain += answers[key]["flash"]
@@ -4232,7 +4245,7 @@ def parallel_path(torch, ops, card, l128_dir, device="cuda"):
             for key, extra in (("no_flag", []), ("no_flag_again", []),
                                ("data_parallel", ["--data_parallel"])):
                 steps = []
-                before, t0 = fa.launches, time.time()
+                before, t0 = launches_of(fa), time.time()
                 with calls(torch, tstate, "train_step", fa, steps):
                     vq_cli.main([
                         "--input", str(ROOT / "data/targets/ped"),
@@ -4242,7 +4255,7 @@ def parallel_path(torch, ops, card, l128_dir, device="cuda"):
                         "--restart_every", "0", "--device", device, *extra])
                 vq[key] = {"losses": [float(r["result"]["loss"])
                                       for r in steps],
-                           "flash": fa.launches - before,
+                           "flash": launches_of(fa) - before,
                            "s": time.time() - t0}
                 if key == "data_parallel":
                     flash += vq[key]["flash"]
@@ -4381,7 +4394,7 @@ def main() -> int:
                                     (64, 1536, 4096), (4096, 512, 1536),
                                     (64, 512, 1536))],
     }
-    ffn_phase_launches = ff.launches
+    ffn_phase_launches = launches_of(ff)
     for name, rows in shapes.items():
         for s in rows:
             print(f"[kernel] {name} " + json.dumps(s), flush=True)

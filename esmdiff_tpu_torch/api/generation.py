@@ -21,6 +21,18 @@ too, and the server one process).  A row's draws depend only on (its
 request's seed, its index), so the ensemble is the same with or without
 the split, up to the trunk's floating-point reduction order at the
 parts' row counts.
+
+Tracing (``utils/tracing.py``): each ensemble call is a root
+``sample.request`` span; inside it ``sample.plan`` (the rows, the batch
+plan, the pack factors), ``sample.batch`` a batch (each part's spans on
+its replica's thread under it), the sampler's ``sample.step`` /
+``sample.draws`` / ``trunk.forward`` / ``sample.update``, and
+``sample.to_host``; ``decode`` around a decode call.  Counters, from the
+host's rows: ``plan.rows_asked`` and ``plan.rows_run`` (the samples and
+the rows the plan runs, surplus rows included), the trunk's
+``trunk.positions_valid`` and ``trunk.positions_run`` a forward (real and
+run positions, ``diffusion/mdlm.py::count_trunk``), ``decode.rows_valid``
+and ``decode.rows_run``.
 """
 
 from __future__ import annotations
@@ -28,6 +40,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
+import inspect
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
@@ -41,13 +55,14 @@ from esmdiff_tpu_torch.diffusion.gibbs import (RowGeneratorUniform,
                                                entropy_bounded_unmask_sample,
                                                iterative_unmask_sample)
 from esmdiff_tpu_torch.diffusion.mdlm import (MDLM, MDLMConfig, NoiseSource,
-                                              RowGeneratorNoise,
+                                              RowGeneratorNoise, count_trunk,
                                               shield_special_tokens)
 from esmdiff_tpu_torch.diffusion.noise import LogLinearNoise, Noise
 from esmdiff_tpu_torch.ops.packing import (PACK_TARGET_LEN, pack_factor,
                                            packed_positions,
                                            packed_segment_ids,
                                            plan_segment_rows)
+from esmdiff_tpu_torch.utils import tracing
 from .protein_api import ESM3Runtime, ESMProtein
 
 # Reference inference memory budget (sample_esmdiff.py:75).
@@ -177,6 +192,30 @@ class SegmentNoise:
                 stay_u.view(self.R, self.T))
 
 
+def _request(mode: str):
+    """An ensemble call (its first arguments the sequence or sequences
+    and the sample count or counts) as a ``sample.request`` span: attrs
+    mode, residues and samples."""
+    def wrap(fn):
+        sig = inspect.signature(fn)
+        seq_arg, count_arg = list(sig.parameters)[1:3]
+
+        @functools.wraps(fn)
+        def call(self, *args, **kwargs):
+            if not tracing.enabled():
+                return fn(self, *args, **kwargs)
+            given = sig.bind(self, *args, **kwargs).arguments
+            seqs, counts = given[seq_arg], given[count_arg]
+            one = isinstance(seqs, str)
+            with tracing.span(
+                    "sample.request", mode=mode,
+                    residues=len(seqs) if one else [len(q) for q in seqs],
+                    samples=int(counts) if one else [int(c) for c in counts]):
+                return fn(self, *args, **kwargs)
+        return call
+    return wrap
+
+
 @dataclasses.dataclass
 class Replica:
     """A copy of the runtime's trunk (and sigma embedder) on one device."""
@@ -235,7 +274,8 @@ class EnsembleSampler:
 
     def _parallel(self, jobs: list) -> list:
         """Run ``jobs`` (replica, fn) -> [fn(replica), ...] in order: in
-        this thread on one replica, else on a thread a replica."""
+        this thread on one replica, else on a thread a replica, its spans
+        under the caller's."""
         def call(job):
             rep, fn = job
             with (torch.cuda.device(rep.device) if rep.device.type == "cuda"
@@ -244,8 +284,14 @@ class EnsembleSampler:
 
         if len(self.replicas) == 1:
             return [call(j) for j in jobs]
+        parent = tracing.current()
+
+        def adopted(job):
+            with tracing.within(parent):
+                return call(job)
+
         with ThreadPoolExecutor(len(self.replicas)) as pool:
-            return list(pool.map(call, jobs))
+            return list(pool.map(adopted, jobs))
 
     # -- shared helpers -------------------------------------------------------
     def _padded_tokens(self, sequence: str, pad_to: Optional[int]):
@@ -280,18 +326,20 @@ class EnsembleSampler:
         (``_multi_rows``), initial structure tokens (MASK on every valid
         position, PAD past it), decode mask (the interior) and (request
         seed, sample index); and each request's length with specials."""
-        seq_rows, lws, Lpad = self._multi_rows(sequences, counts)
-        N = seq_rows.shape[0]
-        id_rows = np.concatenate([
-            np.stack([np.full(c, s), np.arange(c)], axis=1)
-            for s, c in zip(seeds, counts)])
-        init_rows = np.full((N, Lpad), C.STRUCTURE_PAD_TOKEN, dtype=np.int64)
-        dmask_rows = np.zeros((N, Lpad), dtype=bool)
-        r = 0
-        for lw, c in zip(lws, counts):
-            init_rows[r:r + c, :lw] = C.STRUCTURE_MASK_TOKEN
-            dmask_rows[r:r + c, 1:lw - 1] = True
-            r += c
+        with tracing.span("sample.plan"):
+            seq_rows, lws, Lpad = self._multi_rows(sequences, counts)
+            N = seq_rows.shape[0]
+            id_rows = np.concatenate([
+                np.stack([np.full(c, s), np.arange(c)], axis=1)
+                for s, c in zip(seeds, counts)])
+            init_rows = np.full((N, Lpad), C.STRUCTURE_PAD_TOKEN,
+                                dtype=np.int64)
+            dmask_rows = np.zeros((N, Lpad), dtype=bool)
+            r = 0
+            for lw, c in zip(lws, counts):
+                init_rows[r:r + c, :lw] = C.STRUCTURE_MASK_TOKEN
+                dmask_rows[r:r + c, 1:lw - 1] = True
+                r += c
         return seq_rows, init_rows, dmask_rows, id_rows, lws
 
     @staticmethod
@@ -306,6 +354,7 @@ class EnsembleSampler:
         return out
 
     # -- ddpm -----------------------------------------------------------------
+    @_request("ddpm")
     def ddpm_ensemble(self, sequence: str, num_samples: int,
                       num_steps: int = 25, eps: float = 1e-5, seed: int = 0,
                       mask_ids: Optional[Sequence[int]] = None,
@@ -347,6 +396,7 @@ class EnsembleSampler:
         return self._ddpm(seq_rows, prior_rows, id_rows, lws, [num_samples],
                           num_steps, eps, sample_max_t, budget, max_batch)[0]
 
+    @_request("ddpm")
     def ddpm_ensemble_multi(self, sequences: Sequence[str],
                             counts: Sequence[int], num_steps: int = 25,
                             eps: float = 1e-5, seed: int = 0,
@@ -374,7 +424,7 @@ class EnsembleSampler:
         request."""
         Lpad = seq_rows.shape[1]
 
-        def run(rep, idx, seq_b, lengths, pack):
+        def run(rep, idx, seq_b, lengths, pack, valid):
             return rep.mdlm.ddpm_sample(
                 seq_b, self.noise_factory(id_rows[idx], Lpad,
                                           self.mdlm_cfg.vocab_size,
@@ -382,7 +432,8 @@ class EnsembleSampler:
                 num_steps=num_steps, eps=eps,
                 input_prior=torch.as_tensor(prior_rows[idx],
                                             device=rep.device),
-                sample_max_t=sample_max_t, lengths=lengths, pack=pack)
+                sample_max_t=sample_max_t, lengths=lengths, pack=pack,
+                positions_valid=valid)
 
         toks, _ = self._run_batches(seq_rows, max(lws), budget, max_batch,
                                     run)
@@ -391,15 +442,17 @@ class EnsembleSampler:
     def _run_batches(self, seq_rows: np.ndarray, length_with_specials: int,
                      budget: int, max_batch: Optional[int], run):
         """Plan the (N, Lpad) rows into batches (``plan_batches``) and run
-        each through ``run(replica, idx, seq_b, lengths, pack)`` -> (B,
-        Lpad) tokens, or (tokens, info), where idx are the batch's row
+        each through ``run(replica, idx, seq_b, lengths, pack, valid)`` ->
+        (B, Lpad) tokens, or (tokens, info), where idx are the batch's row
         indices (with several replicas, each a contiguous part of the
-        batch's rows); returns the N rows' tokens and the infos in order.
-        The plan's final round-up batch may exceed the remaining rows: its
-        surplus rows re-sample the last row and are trimmed."""
+        batch's rows) and valid the real positions of its rows that are
+        not surplus (a host integer, for the trunk's counters); returns
+        the N rows' tokens and the infos in order.  The plan's final
+        round-up batch may exceed the remaining rows: its surplus rows
+        re-sample the last row and are trimmed."""
         N, Lpad = seq_rows.shape
 
-        def part(idx):
+        def part(idx, valid, pack):
             def on(rep):
                 seq_b = torch.as_tensor(seq_rows[idx], dtype=torch.long,
                                         device=rep.device)
@@ -407,25 +460,37 @@ class EnsembleSampler:
                 # describe the mask (the kernel path)
                 lengths = (seq_b != C.SEQUENCE_PAD_TOKEN).sum(
                     dim=-1, dtype=torch.int32)
-                out = run(rep, idx, seq_b, lengths,
-                          self._pack(len(idx), Lpad))
+                out = run(rep, idx, seq_b, lengths, pack, valid)
                 toks, info = out if isinstance(out, tuple) else (out, None)
-                return toks.cpu().numpy().astype(np.int32), info
+                with tracing.span("sample.to_host"):
+                    toks = toks.cpu()
+                return toks.numpy().astype(np.int32), info
             return on
 
+        with tracing.span("sample.plan"):
+            sizes = plan_batches(length_with_specials, N, budget, max_batch,
+                                 policy=self.plan_policy)
+            row_valid = (seq_rows != C.SEQUENCE_PAD_TOKEN).sum(axis=1)
+            batches, start = [], 0
+            for B in sizes:
+                rows = np.arange(start, start + B)
+                batches.append((B, [
+                    (np.minimum(p, N - 1), int(row_valid[p[p < N]].sum()),
+                     self._pack(len(p), Lpad))
+                    for p in np.array_split(rows, len(self.replicas))
+                    if len(p)]))
+                start += B
+        tracing.count("plan.rows_asked", N)
+        tracing.count("plan.rows_run", sum(sizes))
         outs, infos = [], []
-        start = 0
-        for B in plan_batches(length_with_specials, N, budget, max_batch,
-                              policy=self.plan_policy):
-            idx = np.minimum(np.arange(start, start + B), N - 1)
-            parts = [p for p in np.array_split(idx, len(self.replicas))
-                     if len(p)]
-            for toks, info in self._parallel(
-                    [(rep, part(p)) for rep, p in zip(self.replicas, parts)]):
-                outs.append(toks)
-                if info is not None:
-                    infos.append(info)
-            start += B
+        for B, parts in batches:
+            with tracing.span("sample.batch", B=B, L=Lpad, pack=parts[0][2]):
+                for toks, info in self._parallel(
+                        [(rep, part(*p))
+                         for rep, p in zip(self.replicas, parts)]):
+                    outs.append(toks)
+                    if info is not None:
+                        infos.append(info)
         return np.concatenate(outs, axis=0)[:N], infos
 
     @staticmethod
@@ -472,6 +537,7 @@ class EnsembleSampler:
         return ("packed" if packed < split * 0.98 else "split",
                 packed, split)
 
+    @_request("ddpm")
     def ddpm_ensemble_mixed(self, sequences: Sequence[str],
                             counts: Sequence[int], num_steps: int = 25,
                             eps: float = 1e-5,
@@ -507,6 +573,7 @@ class EnsembleSampler:
                 results[i] = o
         return results
 
+    @_request("ddpm")
     def ddpm_ensemble_packed(self, sequences: Sequence[str],
                              counts: Sequence[int], num_steps: int = 25,
                              eps: float = 1e-5, sample_max_t: float = 1.0,
@@ -526,17 +593,18 @@ class EnsembleSampler:
         Returns one (counts[i], L_i) interior-token array per request."""
         if seeds is None:
             seeds = list(range(len(sequences)))
-        seq_toks = [np.asarray(self.runtime.seq_tokenizer.encode(s))
-                    for s in sequences]
-        lws = [len(t) for t in seq_toks]
-        # (request, sample) -> one segment each, request-major
-        segs = [(i, j) for i, c in enumerate(counts) for j in range(c)]
-        T = max(128, bucket_length(max(lws), 64))
-        rows = plan_segment_rows([lws[i] for i, _ in segs], T)
-        R = len(rows)
-        max_rows = max(1, budget // (T * T))
-        Rb = min(1 << (max_rows.bit_length() - 1),
-                 max(8, _pow2_at_least(R)))
+        with tracing.span("sample.plan"):
+            seq_toks = [np.asarray(self.runtime.seq_tokenizer.encode(s))
+                        for s in sequences]
+            lws = [len(t) for t in seq_toks]
+            # (request, sample) -> one segment each, request-major
+            segs = [(i, j) for i, c in enumerate(counts) for j in range(c)]
+            T = max(128, bucket_length(max(lws), 64))
+            rows = plan_segment_rows([lws[i] for i, _ in segs], T)
+            R = len(rows)
+            max_rows = max(1, budget // (T * T))
+            Rb = min(1 << (max_rows.bit_length() - 1),
+                     max(8, _pow2_at_least(R)))
 
         out_per_seg: list = [None] * len(segs)
 
@@ -571,8 +639,11 @@ class EnsembleSampler:
                     input_prior=torch.as_tensor(prior, device=dev),
                     sample_max_t=sample_max_t,
                     sequence_id=torch.as_tensor(segid, device=dev),
-                    positions=torch.as_tensor(posit, device=dev))
-                return placed, toks.cpu().numpy().astype(np.int32)
+                    positions=torch.as_tensor(posit, device=dev),
+                    positions_valid=sum(lw for _, _, _, lw in placed))
+                with tracing.span("sample.to_host"):
+                    toks = toks.cpu()
+                return placed, toks.numpy().astype(np.int32)
             return on
 
         # each chunk of Rb rows on one replica, the chunks round robin
@@ -581,7 +652,9 @@ class EnsembleSampler:
         for i in range(0, len(starts), n):
             jobs = [(self.replicas[j], chunk(st))
                     for j, st in enumerate(starts[i:i + n])]
-            for placed, toks in self._parallel(jobs):
+            with tracing.span("sample.batch", B=Rb * len(jobs), L=T):
+                done = self._parallel(jobs)
+            for placed, toks in done:
                 for gseg, r, off, lw in placed:
                     out_per_seg[gseg] = toks[r, off + 1:off + lw - 1]
         res, k = [], 0
@@ -592,8 +665,10 @@ class EnsembleSampler:
 
     # -- gibbs and eb ---------------------------------------------------------
     def _trunk_forward(self, pack: int = 1, trunk=None):
-        """(tokens, seq_tokens, lengths) -> float32 raw structure logits
-        (B, L, V) of ``trunk`` (default the runtime's), the specials
+        """(tokens, seq_tokens, lengths, positions_valid=None) -> float32
+        raw structure logits (B, L, V) of ``trunk`` (default the
+        runtime's), a ``trunk.forward`` span, counted (``count_trunk``):
+        the specials
         shielded unless the head is the stock 4096-way one, optionally
         through the sequence-packed view (the caller keeps (B, L)).  No
         mask-token shield: on the stock head the mask token lies past V,
@@ -601,18 +676,21 @@ class EnsembleSampler:
         trunk = self.runtime.trunk if trunk is None else trunk
         stock_head = trunk.cfg.head_type == "esm3"
 
-        def forward(tokens, seq_tokens, lengths):
+        def forward(tokens, seq_tokens, lengths, positions_valid=None):
             B, L = tokens.shape
-            if pack > 1:
-                out = trunk(
-                    structure_tokens=tokens.reshape(B // pack, pack * L),
-                    sequence_tokens=seq_tokens.reshape(B // pack, pack * L),
-                    sequence_id=packed_segment_ids(lengths, L, pack),
-                    positions=packed_positions(L, pack,
-                                               device=tokens.device))
-            else:
-                out = trunk(structure_tokens=tokens,
-                            sequence_tokens=seq_tokens, lengths=lengths)
+            count_trunk(B, L, positions_valid)
+            with tracing.span("trunk.forward"):
+                if pack > 1:
+                    out = trunk(
+                        structure_tokens=tokens.reshape(B // pack, pack * L),
+                        sequence_tokens=seq_tokens.reshape(B // pack,
+                                                           pack * L),
+                        sequence_id=packed_segment_ids(lengths, L, pack),
+                        positions=packed_positions(L, pack,
+                                                   device=tokens.device))
+                else:
+                    out = trunk(structure_tokens=tokens,
+                                sequence_tokens=seq_tokens, lengths=lengths)
             # the head's float32 output is fresh: shield it in place
             logits = out.structure_logits.float().reshape(B, L, -1)
             if not stock_head:
@@ -631,11 +709,11 @@ class EnsembleSampler:
         seq_rows, init_rows, dmask_rows, id_rows, lws = rows
         Lpad = seq_rows.shape[1]
 
-        def run(rep, idx, seq_b, lengths, pack):
+        def run(rep, idx, seq_b, lengths, pack, valid):
             forward = self._trunk_forward(pack, rep.trunk)
             dev = rep.device
             return sample(
-                lambda tokens: forward(tokens, seq_b, lengths),
+                lambda tokens: forward(tokens, seq_b, lengths, valid),
                 self.uniform_factory(id_rows[idx], Lpad,
                                      self._logits_width(), dev),
                 torch.as_tensor(init_rows[idx], device=dev),
@@ -650,6 +728,7 @@ class EnsembleSampler:
         return (C.VQVAE_CODEBOOK_SIZE if cfg.head_type == "esm3"
                 else cfg.n_structure_heads)
 
+    @_request("gibbs")
     def gibbs_ensemble(self, sequence: str, num_samples: int,
                        config: GenerationConfig = GenerationConfig(),
                        seed: int = 0,
@@ -688,6 +767,7 @@ class EnsembleSampler:
         return self._unmask(rows, [num_samples], budget, max_batch,
                             _gibbs_sample(config))[0][0]
 
+    @_request("gibbs")
     def gibbs_ensemble_multi(self, sequences: Sequence[str],
                              counts: Sequence[int],
                              config: GenerationConfig = GenerationConfig(),
@@ -706,6 +786,7 @@ class EnsembleSampler:
                             counts, budget, max_batch,
                             _gibbs_sample(config))[0]
 
+    @_request("gibbs")
     def gibbs_ensemble_mixed(self, sequences: Sequence[str],
                              counts: Sequence[int],
                              config: GenerationConfig = GenerationConfig(),
@@ -732,6 +813,7 @@ class EnsembleSampler:
                 results[i] = o
         return results
 
+    @_request("eb")
     def eb_ensemble(self, sequence: str, num_samples: int,
                     entropy_budget: float = 1.0, temperature: float = 1.0,
                     top_p: float = 1.0, max_steps: int = 64, seed: int = 0,
@@ -753,8 +835,9 @@ class EnsembleSampler:
     # -- decode to proteins ---------------------------------------------------
     def decode_ensemble(self, sequence: str, tokens: np.ndarray,
                         decode_batch: int = 32) -> list[ESMProtein]:
-        return decode_tokens_to_proteins(self.runtime, sequence, tokens,
-                                         decode_batch)
+        with tracing.span("decode", rows=len(tokens)):
+            return decode_tokens_to_proteins(self.runtime, sequence, tokens,
+                                             decode_batch)
 
     def decode_ensemble_multi(self, sequences: Sequence[str],
                               tokens_list: Sequence[np.ndarray],
@@ -766,20 +849,22 @@ class EnsembleSampler:
         min(decode_batch, the power of two >= n) rows."""
         results: list[list] = [[None] * t.shape[0] for t in tokens_list]
         by_bucket: dict[int, list] = {}
-        for i, (seq, toks) in enumerate(zip(sequences, tokens_list)):
-            for j in range(toks.shape[0]):
-                row = StructureTokenizer.add_bos_eos(toks[j].astype(np.int32))
-                by_bucket.setdefault(bucket_length(len(row)), []).append(
-                    (i, j, row, seq))
-        for Lpad, rows in by_bucket.items():
-            for s in range(0, len(rows), decode_batch):
-                chunk = rows[s:s + decode_batch]
-                B = min(decode_batch, _pow2_at_least(len(chunk)))
-                prots = _decode_padded_chunk(
-                    self.runtime, [r[2] for r in chunk],
-                    [r[3] for r in chunk], Lpad, B)
-                for (i, j, _, _), p in zip(chunk, prots):
-                    results[i][j] = p
+        with tracing.span("decode", rows=sum(len(t) for t in tokens_list)):
+            for i, (seq, toks) in enumerate(zip(sequences, tokens_list)):
+                for j in range(toks.shape[0]):
+                    row = StructureTokenizer.add_bos_eos(
+                        toks[j].astype(np.int32))
+                    by_bucket.setdefault(bucket_length(len(row)), []).append(
+                        (i, j, row, seq))
+            for Lpad, rows in by_bucket.items():
+                for s in range(0, len(rows), decode_batch):
+                    chunk = rows[s:s + decode_batch]
+                    B = min(decode_batch, _pow2_at_least(len(chunk)))
+                    prots = _decode_padded_chunk(
+                        self.runtime, [r[2] for r in chunk],
+                        [r[3] for r in chunk], Lpad, B)
+                    for (i, j, _, _), p in zip(chunk, prots):
+                        results[i][j] = p
         return results
 
 
@@ -802,8 +887,11 @@ def _decode_padded_chunk(runtime: ESM3Runtime, rows: list, seqs: list,
     """Decode <= ``decode_batch`` token rows at the fixed (decode_batch,
     Lpad) shape: each row pads to Lpad with STRUCTURE_PAD_TOKEN (masked out
     of decoder attention via ``lengths``), surplus rows repeat the last real
-    row, and the output is trimmed back to the real row count."""
+    row, and the output is trimmed back to the real row count.  Counts
+    ``decode.rows_valid`` (n) and ``decode.rows_run`` (decode_batch)."""
     n = len(rows)
+    tracing.count("decode.rows_valid", n)
+    tracing.count("decode.rows_run", decode_batch)
     toks_pad = np.full((decode_batch, Lpad), C.STRUCTURE_PAD_TOKEN,
                        dtype=np.int32)
     lens = np.zeros((decode_batch,), np.int32)

@@ -25,6 +25,7 @@ from esmdiff_tpu_torch.models.vqvae import (DecoderConfig, EncoderConfig,
 from esmdiff_tpu_torch.nn.layers import (Dense, TimestepEmbedder,
                                          cast_matmul_weights, init_params)
 from esmdiff_tpu_torch.ops.quant import quantize_trunk_params
+from esmdiff_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -240,28 +241,33 @@ class ESM3Runtime:
         strings.  lengths: optional (N,) valid row lengths INCLUDING BOS/EOS
         — rows may be padded past their length; pad positions are masked out
         of decoder attention and stripped from the outputs.
+        Spans: ``decode.device`` (the decoder and the backbone's copy to
+        the host), then ``decode.host`` (the rows' atoms, on the host).
         """
-        toks = torch.as_tensor(np.asarray(structure_tokens), dtype=torch.long,
-                               device=self.device)
-        lens = (None if lengths is None else torch.as_tensor(
-            np.asarray(lengths), dtype=torch.int32, device=self.device))
-        out = self.decoder(toks, compute_ptm=False, lengths=lens)
-        bb = out["bb_pred"][:, 1:].float().cpu().numpy()  # strip BOS
+        with tracing.span("decode.device"):
+            toks = torch.as_tensor(np.asarray(structure_tokens),
+                                   dtype=torch.long, device=self.device)
+            lens = (None if lengths is None else torch.as_tensor(
+                np.asarray(lengths), dtype=torch.int32, device=self.device))
+            out = self.decoder(toks, compute_ptm=False, lengths=lens)
+            bb = out["bb_pred"][:, 1:].float().cpu().numpy()  # strip BOS
         prots = []
-        for i, seq in enumerate(sequences):
-            # a mismatched sequence/token pairing would otherwise silently
-            # yield truncated or EOS/pad-contaminated coordinates
-            row_len = (int(lengths[i]) if lengths is not None
-                       else toks.shape[1])
-            if len(seq) + 2 != row_len:
-                raise ValueError(
-                    f"decode_batch row {i}: sequence has {len(seq)} "
-                    f"residues but the token row holds {row_len} positions "
-                    f"incl. BOS/EOS (expected {len(seq) + 2})")
-            p = protein_io.from_backbone(bb[i, :len(seq)], sequence=seq)
-            coords = p.atom_positions.copy()
-            coords[p.atom_mask < 0.5] = np.nan
-            prots.append(ESMProtein(sequence=seq, coordinates=coords))
+        with tracing.span("decode.host"):
+            for i, seq in enumerate(sequences):
+                # a mismatched sequence/token pairing would otherwise
+                # silently yield truncated or EOS/pad-contaminated
+                # coordinates
+                row_len = (int(lengths[i]) if lengths is not None
+                           else toks.shape[1])
+                if len(seq) + 2 != row_len:
+                    raise ValueError(
+                        f"decode_batch row {i}: sequence has {len(seq)} "
+                        f"residues but the token row holds {row_len} "
+                        f"positions incl. BOS/EOS (expected {len(seq) + 2})")
+                p = protein_io.from_backbone(bb[i, :len(seq)], sequence=seq)
+                coords = p.atom_positions.copy()
+                coords[p.atom_mask < 0.5] = np.nan
+                prots.append(ESMProtein(sequence=seq, coordinates=coords))
         return prots
 
 

@@ -23,8 +23,11 @@ exits with an error).  With several ``--input`` directories each target
 lands in ``<output>/<dir name>/``, names that collide qualified by their
 parents (``a--targets``, ``b--targets``).  ``--data_parallel`` splits
 each batch's rows across a replica of the trunk on every visible card (one
-process; ``EnsembleSampler(devices=...)``); ``--profile DIR`` writes a
-``torch.profiler`` trace of the sampling phase to ``DIR/trace.json``.
+process; ``EnsembleSampler(devices=...)``); ``--profile DIR`` turns the
+tracer (``utils/tracing.py``) on for the sampling phase and writes its
+``torch.profiler`` trace, the program's spans among the kernels, to
+``DIR/trace.json`` and the spans and counters, on the same clock, to
+``DIR/spans.json``.
 ``--ckpt`` also takes a JAX package's orbax run, where tensorstore is
 installed (``convert/orbax.py``).
 
@@ -49,7 +52,7 @@ from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
 from esmdiff_tpu_torch.convert import checkpoints
 from esmdiff_tpu_torch.core import protein as protein_io
 from esmdiff_tpu_torch.ops.refine import refine_ca_ensemble
-from esmdiff_tpu_torch.utils.logging import start_profiler, stop_profiler
+from esmdiff_tpu_torch.utils.tracing import start_profiler, stop_profiler
 
 
 def build_runtime(args) -> ESM3Runtime:
@@ -119,7 +122,9 @@ def get_argparser():
                         "trunk on every visible card.")
     p.add_argument("--profile", type=str, default=None,
                    help="Directory for a torch.profiler trace of the "
-                        "sampling phase (trace.json).")
+                        "sampling phase with the program's spans "
+                        "(trace.json) and the spans and counters on the "
+                        "same clock (spans.json).")
     p.add_argument("--skip_existing", action="store_true",
                    help="Skip targets whose output PDB already exists.")
     p.add_argument("--refine", action="store_true",

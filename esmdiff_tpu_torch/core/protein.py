@@ -20,7 +20,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
-from esmdiff_tpu_torch.utils import native
+from esmdiff_tpu_torch.utils import native, tracing
 
 from . import residue_constants as rc
 
@@ -373,11 +373,12 @@ def ensemble_to_pdb_file(
     prots: Sequence[Protein], path: str | Path, chain_id: str = "A"
 ) -> None:
     """Atomic write (temp file + rename), so a file killed mid-write is never
-    left behind under the final name."""
+    left behind under the final name.  A ``pdb.write`` span."""
     path = Path(path)
     tmp = path.with_name(path.name + ".tmp")
-    tmp.write_text(ensemble_to_pdb(prots, chain_id))
-    os.replace(tmp, path)
+    with tracing.span("pdb.write", models=len(prots)):
+        tmp.write_text(ensemble_to_pdb(prots, chain_id))
+        os.replace(tmp, path)
 
 
 def to_pdb(prot: Protein, chain_id: str = "A") -> str:

@@ -14,6 +14,10 @@ Randomness is an injectable source, as in ``diffusion/mdlm.py``: a callable
 ``step -> u``, a (B, L, V) float32 uniform in [0, 1) for step ``step``.
 ``RowGeneratorUniform`` draws it from one ``torch.Generator`` per row; the
 parity tests inject JAX's ``uniform(fold_in(row_key, step), (L, V))``.
+
+Tracing (``utils/tracing.py``): each step is a ``sample.step`` span, its
+draw a ``sample.draws`` and the rest after the forward (top-p, the
+Gumbel-max draw, the ranking and the commit) a ``sample.update``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Callable, Sequence
 import torch
 
 from esmdiff_tpu_torch.core import constants as C
+from esmdiff_tpu_torch.utils import tracing
 from .mdlm import row_generators
 
 UniformSource = Callable[[int], torch.Tensor]
@@ -131,18 +136,24 @@ def iterative_unmask_sample(forward_logits_fn, uniforms: UniformSource,
     quotas = torch.ceil(cosine_unmask_schedule(num_steps)[None, :]
                         * n_init[:, None].float()).long().to(x.device)
     for step in range(num_steps):
-        logits = forward_logits_fn(x).float()
-        scaled = logits / max(temperature, 1e-4)
-        scaled = top_p_filter(scaled, top_p)
-        sampled = _gumbel_sample(scaled, uniforms(step))
-        logp = torch.log_softmax(logits, dim=-1)
-        conf = logp.gather(-1, sampled[..., None])[..., 0]
+        with tracing.span("sample.step"):
+            logits = forward_logits_fn(x)
+            with tracing.span("sample.draws"):
+                u = uniforms(step)
+            with tracing.span("sample.update"):
+                logits = logits.float()
+                scaled = logits / max(temperature, 1e-4)
+                scaled = top_p_filter(scaled, top_p)
+                sampled = _gumbel_sample(scaled, u)
+                logp = torch.log_softmax(logits, dim=-1)
+                conf = logp.gather(-1, sampled[..., None])[..., 0]
 
-        still_masked = (x == C.STRUCTURE_MASK_TOKEN) & decode_mask
-        already = (decode_mask & (x != C.STRUCTURE_MASK_TOKEN)).sum(dim=-1)
-        n_new = (quotas[:, step] - already).clamp_min(0)
-        commit = select_top_by_confidence(conf, still_masked, n_new)
-        x = torch.where(commit, sampled, x)
+                still_masked = (x == C.STRUCTURE_MASK_TOKEN) & decode_mask
+                already = (decode_mask
+                           & (x != C.STRUCTURE_MASK_TOKEN)).sum(dim=-1)
+                n_new = (quotas[:, step] - already).clamp_min(0)
+                commit = select_top_by_confidence(conf, still_masked, n_new)
+                x = torch.where(commit, sampled, x)
     return x
 
 

@@ -24,6 +24,10 @@ nothing).  The default, ``RowGeneratorNoise``, draws on the device from one
 ``torch.Generator`` per row, so a row's draws depend only on its seed: the
 same request on the same card gives the same tokens.  JAX's threefry bits
 cannot be reproduced in PyTorch; the parity tests inject draws made by JAX.
+
+Tracing (``utils/tracing.py``): every trunk call is a ``trunk.forward``
+span, counted by ``count_trunk``; each iteration of ``ddpm_sample`` a
+``sample.step`` with its ``sample.draws`` and ``sample.update``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 from esmdiff_tpu_torch.core import constants as C
 from esmdiff_tpu_torch.ops.packing import packed_positions, packed_segment_ids
 from esmdiff_tpu_torch.parallel.mesh import RowShard
+from esmdiff_tpu_torch.utils import tracing
 from .noise import LogLinearNoise, Noise
 
 NEG_INFINITY = -1e6
@@ -221,6 +226,17 @@ def logits_parameterization(logits, xt, cfg: MDLMConfig):
     return torch.where((xt != cfg.mask_index)[..., None], carry, logits)
 
 
+def count_trunk(rows: int, width: int, valid: Optional[int]) -> None:
+    """The trunk's counters for one forward of ``rows`` x ``width``
+    positions: ``trunk.forwards``, and where the caller knows on the host
+    how many of them are real (``valid``: not padding, not a surplus row),
+    ``trunk.positions_valid`` and ``trunk.positions_run``."""
+    tracing.count("trunk.forwards")
+    if valid is not None:
+        tracing.count("trunk.positions_valid", valid)
+        tracing.count("trunk.positions_run", rows * width)
+
+
 def row_generators(row_seeds: Sequence[int], device) -> list:
     """One ``torch.Generator`` per row on ``device``, seeded with the row's
     seed."""
@@ -276,7 +292,8 @@ class MDLM:
     def forward_logits(self, xt, condition_seq, sigma,
                        shield_specials: bool = False, sequence_id=None,
                        lengths=None, pack: int = 1, positions=None,
-                       parameterize: bool = False):
+                       parameterize: bool = False,
+                       positions_valid: Optional[int] = None):
         """Conditioned forward -> (float32 logits, sequence logits or None).
 
         By default the logits are raw (JAX's ``parameterize=False``): only
@@ -289,8 +306,11 @@ class MDLM:
         to a device row under a block-diagonal segment mask, positions
         restarting per segment (ops/packing.py); the same function, and the
         outputs come back at (B, L).  It needs B % pack == 0 and raises with
-        an explicit ``sequence_id`` (already-packed input)."""
+        an explicit ``sequence_id`` (already-packed input).
+        ``positions_valid``: the real positions of the batch, a host
+        integer, for the trunk's counters (``count_trunk``)."""
         B, L = xt.shape
+        count_trunk(B, L, positions_valid)
         aux = None
         if sigma is not None:
             cond = self.sigma_embedder(self._process_sigma(sigma))
@@ -307,9 +327,11 @@ class MDLM:
             condition_seq = condition_seq.reshape(B // pack, pack * L)
             if aux is not None:
                 aux = aux.reshape(B // pack, pack * L, -1)
-        out = self.net(structure_tokens=xt, sequence_tokens=condition_seq,
-                       sequence_id=sequence_id, lengths=lengths,
-                       positions=positions, auxiliary_embeddings=aux)
+        with tracing.span("trunk.forward"):
+            out = self.net(structure_tokens=xt,
+                           sequence_tokens=condition_seq,
+                           sequence_id=sequence_id, lengths=lengths,
+                           positions=positions, auxiliary_embeddings=aux)
         if out is None:  # a pipeline stage without the heads
             return None, None
         # the head's float32 output is fresh: shield it in place
@@ -465,9 +487,12 @@ class MDLM:
             cond_seg = torch.zeros_like(cond_seg)
         emb = self.sigma_embedder(cond_seg.reshape(B * S)).reshape(B, S, -1)
         aux = emb.gather(1, segc[..., None].expand(-1, -1, emb.shape[-1]))
-        out = self.net(structure_tokens=xt, sequence_tokens=condition_seq,
-                       sequence_id=seg, positions=batch["positions"],
-                       auxiliary_embeddings=aux)
+        count_trunk(*xt.shape, None)
+        with tracing.span("trunk.forward"):
+            out = self.net(structure_tokens=xt,
+                           sequence_tokens=condition_seq, sequence_id=seg,
+                           positions=batch["positions"],
+                           auxiliary_embeddings=aux)
         logits = logits_parameterization(out.structure_logits, xt, cfg)
         seq_logits = (out.sequence_logits if cfg.sequence_prediction
                       else None)
@@ -480,7 +505,7 @@ class MDLM:
                     num_steps: int = 25, eps: float = 1e-5, input_prior=None,
                     sample_max_t: float = 1.0, shield_specials: bool = True,
                     sequence_id=None, lengths=None, pack: int = 1,
-                    positions=None):
+                    positions=None, positions_valid: Optional[int] = None):
         """Ancestral denoising: ``num_steps`` sampling steps plus, with
         ``noise_removal``, a final argmax step.
 
@@ -492,6 +517,7 @@ class MDLM:
         state and draws stay at (B, L), so a seed's tokens do not change.
         sequence_id, positions: an already-packed layout (the cross-length
         packed engine, api/generation.py), passed to every trunk forward.
+        positions_valid: the real positions, for the trunk's counters.
         Returns (B, L) int64 structure tokens (with BOS/EOS slots).
         """
         cfg = self.cfg
@@ -508,27 +534,33 @@ class MDLM:
         dt = (1 - eps) / num_steps
         n_iters = num_steps + (1 if cfg.noise_removal else 0)
         for i in range(n_iters):
-            tb = timesteps[i].to(dev).expand(B)
-            sigma_t = self.noise.total_noise(tb)
-            sigma_s = self.noise.total_noise(tb - dt)
-            mc_t = (1 - torch.exp(-sigma_t))[:, None]        # (B, 1)
-            mc_s = (1 - torch.exp(-sigma_s))[:, None]
-            z, _ = self.forward_logits(
-                x, sequence_tokens, sigma_t[:, None],
-                shield_specials=shield_specials, sequence_id=sequence_id,
-                lengths=lengths, pack=pack, positions=positions)
-            copy = x != cfg.mask_index
-            if i == num_steps:
-                # noise removal: argmax of p(x0) at still-masked positions;
-                # unmasked positions carry over (the SUBS rule on tokens)
-                x = torch.where(copy, x, z.argmax(dim=-1))
-                continue
-            # Two-stage form of the reference posterior sample: a masked
-            # position stays masked w.p. mc_s/mc_t, else draws x0 ~
-            # softmax(z) by Gumbel-max (no normalisation needed).
-            gumbel, stay_u = noise_source(i)
-            x_new = (z + gumbel.to(dev)).argmax(dim=-1)
-            stay = stay_u.to(dev) * mc_t < mc_s
-            x_new = torch.where(stay, cfg.mask_index, x_new)
-            x = torch.where(copy, x, x_new)
+            with tracing.span("sample.step"):
+                tb = timesteps[i].to(dev).expand(B)
+                sigma_t = self.noise.total_noise(tb)
+                sigma_s = self.noise.total_noise(tb - dt)
+                mc_t = (1 - torch.exp(-sigma_t))[:, None]        # (B, 1)
+                mc_s = (1 - torch.exp(-sigma_s))[:, None]
+                z, _ = self.forward_logits(
+                    x, sequence_tokens, sigma_t[:, None],
+                    shield_specials=shield_specials, sequence_id=sequence_id,
+                    lengths=lengths, pack=pack, positions=positions,
+                    positions_valid=positions_valid)
+                copy = x != cfg.mask_index
+                if i == num_steps:
+                    # noise removal: argmax of p(x0) at still-masked
+                    # positions; unmasked positions carry over (the SUBS
+                    # rule on tokens)
+                    with tracing.span("sample.update"):
+                        x = torch.where(copy, x, z.argmax(dim=-1))
+                    continue
+                # Two-stage form of the reference posterior sample: a
+                # masked position stays masked w.p. mc_s/mc_t, else draws
+                # x0 ~ softmax(z) by Gumbel-max (no normalisation needed).
+                with tracing.span("sample.draws"):
+                    gumbel, stay_u = noise_source(i)
+                with tracing.span("sample.update"):
+                    x_new = (z + gumbel.to(dev)).argmax(dim=-1)
+                    stay = stay_u.to(dev) * mc_t < mc_s
+                    x_new = torch.where(stay, cfg.mask_index, x_new)
+                    x = torch.where(copy, x, x_new)
         return x

@@ -21,8 +21,8 @@ sweeps stream K.  So p is rounded to bf16 exactly where the TPU kernel
 rounds it, at every L.
 
 ``flash_attention`` runs the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor, or raises: there is no fallback.  ``launches``
-counts kernel launches and nothing else.
+kernel for a CUDA tensor, or raises: there is no fallback.  The tracer's
+counter ``flash.launches`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import torch
 
 from esmdiff_tpu_torch.ops import _build
 from esmdiff_tpu_torch.ops._build import INT, LONG, PTR
+from esmdiff_tpu_torch.utils import tracing
 
 HEAD_DIM = 64
 TILE = 64          # query rows a block takes; keys a single pass holds
@@ -39,7 +40,6 @@ TILE = 64          # query rows a block takes; keys a single pass holds
 # memory a block (flash 54 KB, small 88 KB with its rotary tables)
 BLOCKS_PER_SM = {"flash_attention": 4, "small_attention": 2}
 
-launches = 0       # kernel launches (plain-version calls are not counted)
 ARGTYPES = {"flash_attention": [PTR] * 5 + [INT] * 4 + [LONG] * 12,
             "small_attention": [PTR] * 7 + [INT] * 4 + [LONG] * 12}
 
@@ -118,13 +118,12 @@ def launch_attention(name: str, q, k, v, lengths, *tables):
 
 def flash_attention(q, k, v, lengths=None):
     """q, k, v: (B, L, H, Dh) -> (B, L, H, Dh); lengths: optional (B,)."""
-    global launches
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     out = launch_attention("flash_attention", q, k, v, lengths)
-    launches += 1
+    tracing.count("flash.launches")
     return out
 
 

@@ -28,7 +28,8 @@ earlier kernel of this file, which took any multiple of 128 for both;
 ``fused_swiglu_ffn`` raises ``ValueError`` on any other shape before a
 launch.  The plain version, which a CPU tensor runs, takes every shape.
 For a CUDA tensor the wrapper launches the kernel or raises: there is no
-fallback.  ``launches`` counts kernel launches and nothing else.
+fallback.  The tracer's counter ``fused_ffn.launches`` counts kernel
+launches and nothing else.
 """
 
 from __future__ import annotations
@@ -40,19 +41,18 @@ from esmdiff_tpu_torch.ops import _build
 from esmdiff_tpu_torch.ops._build import INT, LONG, PTR
 from esmdiff_tpu_torch.ops.fused_qkv import (WIDTHS, check_rows,
                                              check_tma_weight)
+from esmdiff_tpu_torch.utils import tracing
 
 EPS = 1e-5
 BH = 512           # hidden columns per chunk: 8 blocks x 64
 _ARGTYPES = [PTR, LONG, PTR, PTR, LONG, LONG, PTR, LONG, LONG, PTR, PTR,
              LONG, INT, INT, INT]
 
-launches = 0       # kernel launches (plain-version calls are not counted)
 
 
 def fused_swiglu_ffn(x, ln_scale, w_up, w_down):
     """x: (M, D); ln_scale: (D,); w_up: (D, 2H) as [a | b]; w_down: (H, D).
     Returns (M, D) in x's dtype."""
-    global launches
     if x.device.type == "cpu":
         return fused_swiglu_ffn_reference(x, ln_scale, w_up, w_down)
     if x.device.type != "cuda":
@@ -81,7 +81,7 @@ def fused_swiglu_ffn(x, ln_scale, w_up, w_down):
         x2.data_ptr(), x2.stride(0), scale.data_ptr(), w_up.data_ptr(),
         *w_up.stride(), w_down.data_ptr(), *w_down.stride(), xn.data_ptr(),
         out.data_ptr(), D, M, D, H)
-    launches += 1
+    tracing.count("fused_ffn.launches")
     return out
 
 

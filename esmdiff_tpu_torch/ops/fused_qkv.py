@@ -20,8 +20,8 @@ it reads W in place through one TMA descriptor per call, K-major (the
 port's (3D, D) weight goes in as ``weight.t()``) or MN-major (a row-major
 (D, 3D) W, through wgmma's transpose bit): no copy for either layout.
 ``fused_ln_qkv`` runs the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor, or raises: there is no fallback.  ``launches``
-counts kernel launches and nothing else.
+kernel for a CUDA tensor, or raises: there is no fallback.  The tracer's
+counter ``fused_qkv.launches`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -30,12 +30,12 @@ import torch
 
 from esmdiff_tpu_torch.ops import _build
 from esmdiff_tpu_torch.ops._build import INT, LONG, PTR
+from esmdiff_tpu_torch.utils import tracing
 
 EPS = 1e-5
 WIDTHS = (512, 1024, 1536)   # D = 8 blocks x 64 * (1, 2 or 3) columns
 _ARGTYPES = [PTR, LONG, PTR, PTR, LONG, LONG, PTR, PTR, PTR, LONG, INT, INT]
 
-launches = 0       # kernel launches (plain-version calls are not counted)
 
 
 def ln_f32(x, scale):
@@ -81,7 +81,6 @@ def check_rows(x, D) -> torch.Tensor:
 def fused_ln_qkv(x, ln_scale, w_qkv, q_ln_scale, k_ln_scale):
     """x: (B, L, D); w_qkv: (D, 3D).  Returns (B, L, 3D) =
     [QK-LN(LN(x) Wq), QK-LN(LN(x) Wk), LN(x) Wv]."""
-    global launches
     if x.device.type == "cpu":
         return fused_ln_qkv_reference(x, ln_scale, w_qkv, q_ln_scale,
                                       k_ln_scale)
@@ -104,7 +103,7 @@ def fused_ln_qkv(x, ln_scale, w_qkv, q_ln_scale, k_ln_scale):
         x2.data_ptr(), x2.stride(0), scales[0].data_ptr(), w_qkv.data_ptr(),
         *w_qkv.stride(), scales[1].data_ptr(), scales[2].data_ptr(),
         out.data_ptr(), 3 * D, x2.shape[0], D)
-    launches += 1
+    tracing.count("fused_qkv.launches")
     return out
 
 

@@ -21,7 +21,8 @@ The card's product takes more than 16 rows and K, N multiples of 8, so
 fewer rows are zero-padded (never sent to the plain version).  The plain
 version, ``int8_mm_reference``, takes the product in float64: every partial
 sum is an integer below 2^53, so it is the exact int32 product on either
-device.  ``launches`` counts the card products.
+device.  The tracer's counter ``int8_mm.launches`` counts the card
+products.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-launches = 0       # torch._int_mm calls (plain-version calls are not counted)
+from esmdiff_tpu_torch.utils import tracing
+
 MIN_ROWS = 32      # the card product's row count at least (it takes > 16)
 
 
@@ -69,7 +71,6 @@ def int8_mm(xq, kernel_q):
     """(T, D) int8 x (F, D) int8 -> (T, F) int32: ``torch._int_mm`` on a
     CUDA tensor (rows zero-padded up to a multiple of 8, at least
     ``MIN_ROWS``), the plain version on a CPU tensor."""
-    global launches
     if xq.device.type == "cpu":
         return int8_mm_reference(xq, kernel_q)
     T, D = xq.shape
@@ -80,7 +81,7 @@ def int8_mm(xq, kernel_q):
     rows = max(MIN_ROWS, -(-T // 8) * 8)
     if rows != T:
         xq = torch.cat([xq, xq.new_zeros(rows - T, D)])
-    launches += 1
+    tracing.count("int8_mm.launches")
     return torch._int_mm(xq, kernel_q.t())[:T]
 
 

@@ -18,8 +18,9 @@ design, with the block's cos and sin rows staged in shared memory once and
 each q and k row rotated in place there, once per block, before the
 products; the rotated q and k never exist in device memory.
 ``small_attention`` runs the plain version for a CPU tensor and launches
-the kernel for a CUDA tensor, or raises: there is no fallback.
-``launches`` counts kernel launches and nothing else.
+the kernel for a CUDA tensor, or raises: there is no fallback.  The
+tracer's counter ``small_attention.launches`` counts kernel launches and
+nothing else.
 """
 
 from __future__ import annotations
@@ -29,13 +30,12 @@ import torch
 from esmdiff_tpu_torch.nn.rotary import apply_rotary, apply_rotary_per_term
 from esmdiff_tpu_torch.ops.flash_attention import (flash_attention_reference,
                                                    launch_attention)
+from esmdiff_tpu_torch.utils import tracing
 
-launches = 0       # kernel launches (plain-version calls are not counted)
 
 
 def small_attention(q, k, v, cos, sin, lengths=None):
     """q, k, v: (B, L, H, Dh) pre-rotary; cos/sin: (L, Dh) -> (B, L, H, Dh)."""
-    global launches
     if q.device.type == "cpu":
         return small_attention_reference(q, k, v, cos, sin, lengths)
     if q.device.type != "cuda":
@@ -47,7 +47,7 @@ def small_attention(q, k, v, cos, sin, lengths=None):
     cos, sin = (t.to(device=q.device, dtype=torch.float32).contiguous()
                 for t in (cos, sin))
     out = launch_attention("small_attention", q, k, v, lengths, cos, sin)
-    launches += 1
+    tracing.count("small_attention.launches")
     return out
 
 

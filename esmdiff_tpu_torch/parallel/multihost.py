@@ -99,12 +99,11 @@ def run_workload(out_file: str, ckpt_dir: str, device="cpu",
         losses.append(tstate.train_step(state, loss_fn, batch,
                                         step_draws(i))["loss"].item())
     # the checkpoint across the process boundary: every rank gathers, rank
-    # 0 writes; every rank restores it into a fresh state
+    # 0 writes (save returns once it has); every rank restores it into a
+    # fresh state
     ckpt = CheckpointManager(Path(ckpt_dir).absolute(),
                              writer=is_main_process())
     ckpt.save(state, step=state.step, metric=losses[-1])
-    if torch.distributed.is_initialized():
-        torch.distributed.barrier()
     restored, loss_fn, _ = build()
     ckpt.restore(Path(ckpt_dir).absolute() / f"step_{state.step}", restored)
     assert restored.step == 2

@@ -114,7 +114,8 @@ class TrainerConfig:
     check_nans: bool = False      # torch.autograd.set_detect_anomaly
     # Lightning profiler analogue (reference configs/debug/profiler.yaml):
     # >0 = capture a torch.profiler trace of that many train steps to
-    # <ckpt_dir>/profile (a Chrome trace)
+    # <ckpt_dir>/profile, with the tracer on: trace.json (a Chrome trace
+    # with the program's spans) and spans.json (the spans and counters)
     profile_steps: int = 0
     # multi-host launch: torchrun across nodes (raises without its
     # environment)

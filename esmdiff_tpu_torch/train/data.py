@@ -13,6 +13,10 @@ bit, as the JAX package's (``tests/test_torch_train.py``):
     (first-fit-decreasing over a sliding window of the shuffled stream);
   - the loader yields the global batch as numpy arrays; the trainer moves
     it to the device.
+
+Building one batch is a ``train.data`` span (``utils/tracing.py``),
+closed before the batch is yielded; it counts ``train.tokens_real`` (the
+batch's mask) and ``train.tokens_run`` (its rows x width).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 
 from esmdiff_tpu_torch.core import constants as C
+from esmdiff_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -146,6 +151,14 @@ def pad_collate(items: Sequence[dict], bucket_multiple: int) -> dict:
     return batch
 
 
+def _counted(batch: dict) -> dict:
+    """``batch``, its real and run tokens counted."""
+    mask = batch["mask"]
+    tracing.count("train.tokens_real", int(mask.sum()))
+    tracing.count("train.tokens_run", mask.size)
+    return batch
+
+
 def pack_collate(rows: Sequence[Sequence[dict]], pack_len: int) -> dict:
     """Materialize pre-assigned rows of items into one packed batch.
 
@@ -200,29 +213,31 @@ def packed_batches(split: Split, cfg: DataConfig, shuffle: bool,
     window = 8 * B
     exhausted = False
     while True:
-        while not exhausted and len(buf) < window:
-            try:
-                buf.append(split.dataset.load(int(next(stream)), rng))
-            except StopIteration:
-                exhausted = True
-        if not buf:
-            return
-        # first-fit-decreasing into B rows
-        order = sorted(range(len(buf)),
-                       key=lambda j: -len(buf[j]["structure_tokens"]))
-        rows: list[list[dict]] = [[] for _ in range(B)]
-        space = [P] * B
-        placed = set()
-        for j in order:
-            L = min(len(buf[j]["structure_tokens"]), P)
-            for r in range(B):
-                if space[r] >= L and len(rows[r]) < S:
-                    rows[r].append(buf[j])
-                    space[r] -= L
-                    placed.add(j)
-                    break
-        buf = [it for j, it in enumerate(buf) if j not in placed]
-        yield pack_collate(rows, P)
+        with tracing.span("train.data"):
+            while not exhausted and len(buf) < window:
+                try:
+                    buf.append(split.dataset.load(int(next(stream)), rng))
+                except StopIteration:
+                    exhausted = True
+            if not buf:
+                return
+            # first-fit-decreasing into B rows
+            order = sorted(range(len(buf)),
+                           key=lambda j: -len(buf[j]["structure_tokens"]))
+            rows: list[list[dict]] = [[] for _ in range(B)]
+            space = [P] * B
+            placed = set()
+            for j in order:
+                L = min(len(buf[j]["structure_tokens"]), P)
+                for r in range(B):
+                    if space[r] >= L and len(rows[r]) < S:
+                        rows[r].append(buf[j])
+                        space[r] -= L
+                        placed.add(j)
+                        break
+            buf = [it for j, it in enumerate(buf) if j not in placed]
+            batch = _counted(pack_collate(rows, P))
+        yield batch
 
 
 @dataclasses.dataclass
@@ -269,5 +284,7 @@ def batches(split: Split, cfg: DataConfig, shuffle: bool, seed: int,
             # pad the batch by repeating items so shapes stay static
             chunk = np.concatenate(
                 [chunk, chunk[np.zeros(bs - len(chunk), dtype=int)]])
-        items = [split.dataset.load(int(i), rng) for i in chunk]
-        yield pad_collate(items, cfg.bucket_multiple)
+        with tracing.span("train.data"):
+            items = [split.dataset.load(int(i), rng) for i in chunk]
+            batch = _counted(pad_collate(items, cfg.bucket_multiple))
+        yield batch

@@ -6,10 +6,12 @@ the dump's per-residue ESM3 embeddings), train epochs with validation
 every ``val_every_n_epochs``, keep the best checkpoints by validation loss
 (``utils/checkpoint.py``), stop early, log metrics to CSV, resume, and the
 debug modes (``fast_dev_run``, ``overfit_batches``, ``limit_batches``,
-``check_nans``, ``profile_steps``).  The run's composed ``config.yaml`` is
-written beside it, from which ``convert/checkpoints.py`` rebuilds the
-model; a CLM/JLM run's ``params.pt`` holds the net's own state dict
-(``load_ar_params`` loads it).
+``check_nans``, ``profile_steps``: the tracer on for those steps,
+``trace.json`` and ``spans.json`` under ``<ckpt_dir>/profile``).  The
+run's composed ``config.yaml`` is written beside it, from which
+``convert/checkpoints.py`` rebuilds the model; a CLM/JLM run's
+``params.pt`` holds the net's own state dict (``load_ar_params`` loads
+it).
 
 One process per card (the card unless the caller asks for the CPU):
 under torchrun the group opens from its environment
@@ -57,8 +59,8 @@ from esmdiff_tpu_torch.parallel import mesh as pmesh
 from esmdiff_tpu_torch.parallel import pp as ppp
 from esmdiff_tpu_torch.utils.checkpoint import CheckpointManager
 from esmdiff_tpu_torch.utils.logging import (MetricLogger, is_main_process,
-                                             make_sink, start_profiler,
-                                             stop_profiler)
+                                             make_sink)
+from esmdiff_tpu_torch.utils import tracing
 
 from . import data as data_mod
 from . import state as tstate
@@ -291,12 +293,13 @@ def init_task(model, cfg: TrainConfig) -> None:
 
 def to_device(batch: dict, device) -> dict:
     """A numpy batch on ``device``: token, id and position arrays as int64,
-    the rest float32."""
+    the rest float32.  A ``train.h2d`` span."""
     out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        t = t.long() if np.issubdtype(v.dtype, np.integer) else t.float()
-        out[k] = t.to(device, non_blocking=True)
+    with tracing.span("train.h2d"):
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            t = t.long() if np.issubdtype(v.dtype, np.integer) else t.float()
+            out[k] = t.to(device, non_blocking=True)
     return out
 
 
@@ -439,7 +442,7 @@ def _train(cfg: TrainConfig, dev: torch.device) -> dict:
                 # step 0 pays the first-use costs)
                 if cfg.trainer.profile_steps > 0 and local_step == 1 \
                         and main:
-                    profiler = start_profiler(dev)
+                    profiler = tracing.start_profiler(dev)
                 metrics = tstate.train_step(state, loss_fn, batch, draws)
                 if profiler is not None and \
                         local_step >= cfg.trainer.profile_steps:
@@ -497,5 +500,5 @@ def _train(cfg: TrainConfig, dev: torch.device) -> dict:
 
 
 def _stop(profiler, run_dir: Path, local_step: int) -> None:
-    out = stop_profiler(profiler, run_dir / "profile").parent
+    out = tracing.stop_profiler(profiler, run_dir / "profile").parent
     print(f"[profile] trace of local steps 1..{local_step} -> {out}")

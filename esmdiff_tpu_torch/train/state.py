@@ -63,6 +63,7 @@ from esmdiff_tpu_torch.parallel import fsdp as pfsdp
 from esmdiff_tpu_torch.parallel import mesh as pmesh
 from esmdiff_tpu_torch.parallel import pp as ppp
 from esmdiff_tpu_torch.parallel import tp as ptp
+from esmdiff_tpu_torch.utils import tracing
 from esmdiff_tpu_torch.utils.logging import is_main_process
 
 STRATEGIES = ("ddp", "zero2", "fsdp", "dpNxtpM", "tpM", "dpNxppS", "ppS")
@@ -454,35 +455,49 @@ def train_step(state: TrainState, loss_fn: Callable, batch: dict,
     loss_fn(batch, draws) -> (loss, breakdown dict).  Returns the breakdown
     with ``loss`` and ``grad_norm`` (the global norm of the raw gradients,
     before clipping), all as device tensors (the global batch's values
-    under a ``distribute`` layout)."""
+    under a ``distribute`` layout).  Spans (``utils/tracing.py``):
+    ``train.step`` around ``train.forward`` (the loss), ``train.backward``
+    and ``train.update`` (the norm, the clip test's read of it, the
+    learning rate and AdamW); counts ``train.steps``."""
+    tracing.count("train.steps")
+    with tracing.span("train.step", step=state.step):
+        return _train_step(state, loss_fn, batch, draws)
+
+
+def _train_step(state: TrainState, loss_fn: Callable, batch: dict,
+                draws) -> dict:
     opt, layout = state.optimizer, state.layout
     pipeline = layout.pipeline
     params = [p for g in opt.adamw.param_groups for p in g["params"]]
     opt.adamw.zero_grad(set_to_none=False)
     with torch.enable_grad():
-        loss, breakdown = loss_fn(batch, draws)
-        if pipeline is not None:
-            # the schedule's backward, then the sum of the data ranks'
-            # parts of the global loss (no DDP: it would reduce per
-            # microbatch)
-            pipeline.backward(loss)
-            if layout.data_world > 1:
-                _sum_grads(params, layout.shard.group)
-        else:
-            # the gradient average over the data axis, times its size:
-            # the sum of the ranks' parts of the global loss
-            (loss * layout.data_world if layout.data_world > 1
-             else loss).backward()
-    grads = [pfsdp.local(p.grad) for p in params]
-    grad_norm = global_norm(grads, [layout.norm_group(p) for p in params],
-                            across=pipeline and pipeline.group)
-    if opt.grad_clip and not grad_norm < opt.grad_clip:
-        # optax: (g / norm) * max, each in the gradient's dtype
-        for g in grads:
-            g.div_(grad_norm.to(g.dtype)).mul_(opt.grad_clip)
-    for group in opt.adamw.param_groups:
-        group["lr"] = opt.lr_at(state.step)
-    opt.adamw.step()
+        with tracing.span("train.forward"):
+            loss, breakdown = loss_fn(batch, draws)
+        with tracing.span("train.backward"):
+            if pipeline is not None:
+                # the schedule's backward, then the sum of the data ranks'
+                # parts of the global loss (no DDP: it would reduce per
+                # microbatch)
+                pipeline.backward(loss)
+                if layout.data_world > 1:
+                    _sum_grads(params, layout.shard.group)
+            else:
+                # the gradient average over the data axis, times its size:
+                # the sum of the ranks' parts of the global loss
+                (loss * layout.data_world if layout.data_world > 1
+                 else loss).backward()
+    with tracing.span("train.update"):
+        grads = [pfsdp.local(p.grad) for p in params]
+        grad_norm = global_norm(grads,
+                                [layout.norm_group(p) for p in params],
+                                across=pipeline and pipeline.group)
+        if opt.grad_clip and not grad_norm < opt.grad_clip:
+            # optax: (g / norm) * max, each in the gradient's dtype
+            for g in grads:
+                g.div_(grad_norm.to(g.dtype)).mul_(opt.grad_clip)
+        for group in opt.adamw.param_groups:
+            group["lr"] = opt.lr_at(state.step)
+        opt.adamw.step()
     state.step += 1
     metrics = _metrics(loss, breakdown)
     metrics = layout.reduce(metrics)

@@ -59,6 +59,9 @@ class CheckpointManager:
             self._index = json.loads(self._index_path.read_text())
 
     def save(self, state, step: int, metric: float):
+        """Write ``state`` as ``step_<step>``.  Under a ``distribute``
+        layout every rank calls it, and none returns before the writer's
+        files are complete, so any rank may restore them next."""
         if getattr(state, "layout", None) is None:
             params = state.model.state_dict()
             optimizer = state.optimizer.adamw.state_dict()
@@ -68,13 +71,19 @@ class CheckpointManager:
 
             params = tstate.full_model_state(state)
             optimizer = tstate.full_optimizer_state(state)
-        if not self.writer:
-            return
+        if self.writer:
+            self._write(params, optimizer, state.step, step, metric)
+        if getattr(state, "layout", None) is not None \
+                and torch.distributed.is_initialized():
+            torch.distributed.barrier()
+
+    def _write(self, params, optimizer, state_step: int, step: int,
+               metric: float):
         path = self.dir / f"step_{step}"
         path.mkdir(parents=True, exist_ok=True)
         torch.save(params, path / PARAMS)
         torch.save(optimizer, path / OPTIMIZER)
-        (path / STATE).write_text(json.dumps({"step": state.step}))
+        (path / STATE).write_text(json.dumps({"step": state_step}))
         self._index = [e for e in self._index if e["step"] != step]
         self._index.append({"step": step, "metric": metric,
                             "path": str(path)})

@@ -1,10 +1,9 @@
-"""Metric logging: CSV sink + rank-0 gating, and profiler traces.
+"""Metric logging: CSV sink + rank-0 gating.
 
 Port of ``esmdiff_tpu/utils/logging.py``: a minimal CSV logger; extra
 backends (tensorboard, wandb) subscribe via ``add_sink``.  Only rank 0 of
-an initialised ``torch.distributed`` group logs.  ``start_profiler`` /
-``stop_profiler`` write the ``torch.profiler`` traces of the trainer's
-``profile_steps`` and the sampling CLI's ``--profile``.
+an initialised ``torch.distributed`` group logs.  Profiler traces and the
+program's spans are ``utils/tracing.py``'s.
 """
 
 from __future__ import annotations
@@ -23,26 +22,6 @@ def is_main_process() -> bool:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank() == 0
     return True
-
-
-def start_profiler(device) -> "torch.profiler.profile":
-    """A running ``torch.profiler`` of the CPU, and of the card's kernels
-    on ``cuda``; end it with ``stop_profiler``."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
-    prof.__enter__()
-    return prof
-
-
-def stop_profiler(prof, out_dir: Path) -> Path:
-    """End ``prof`` and write its chrome trace to ``out_dir/trace.json``."""
-    prof.__exit__(None, None, None)
-    out_dir = Path(out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / "trace.json"))
-    return out_dir / "trace.json"
 
 
 class MetricLogger:
@@ -121,18 +100,3 @@ def make_sink(backend: str, log_dir: str | Path, run_name: str = "esmdiff",
         return lambda m: None  # CSV is MetricLogger's built-in sink
     raise ValueError(f"unknown logger backend: {backend!r}")
 
-
-class Timer:
-    """Wall-clock phase timer (reference @timer, eval_utils.py:24-34)."""
-
-    def __init__(self, name: str = ""):
-        self.name = name
-
-    def __enter__(self):
-        self.t0 = time.time()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed = time.time() - self.t0
-        if self.name:
-            print(f"Elapsed time ({self.name}): {self.elapsed:.2f} sec")

@@ -15,6 +15,7 @@ from esmdiff_tpu_torch.convert import load_flax_params
 from esmdiff_tpu_torch.nn import layers as tl
 from esmdiff_tpu_torch.nn import rotary as trot
 from esmdiff_tpu_torch.ops import fused_qkv as fq
+from esmdiff_tpu_torch.utils import tracing
 from test_torch_support import carry, perturb, to_np
 
 torch.set_num_threads(2)
@@ -35,9 +36,10 @@ def _inputs(B=2, L=48, D=128, seed=0):
 def test_plain_matches_jax_kernel_fp32():
     args = _inputs()
     ref = jax_fused(*map(jnp.asarray, args), block_m=32)
-    launches = fq.launches
+    launches = tracing.counter("fused_qkv.launches")
     out = fq.fused_ln_qkv(*map(torch.from_numpy, args))
-    assert fq.launches == launches  # a CPU tensor never launches the kernel
+    # a CPU tensor never launches the kernel
+    assert tracing.counter("fused_qkv.launches") == launches
     np.testing.assert_allclose(to_np(out), np.asarray(ref), atol=ATOL)
 
 
@@ -240,7 +242,7 @@ def test_wrapper_checks_w_with_tma_rules(monkeypatch):
     w = torch.zeros(3 * D, D + 4, dtype=torch.bfloat16)[:, :D].t()
     monkeypatch.setattr(torch.Tensor, "device",
                         property(lambda self: torch.device("cuda", 0)))
-    launches = fq.launches
+    launches = tracing.counter("fused_qkv.launches")
     with pytest.raises(ValueError, match="TMA"):
         fq.fused_ln_qkv(x, torch.ones(D), w, torch.ones(D), torch.ones(D))
-    assert fq.launches == launches
+    assert tracing.counter("fused_qkv.launches") == launches

@@ -17,6 +17,12 @@ from esmdiff_tpu_torch.ops import fused_ffn as ff
 from esmdiff_tpu_torch.ops import fused_qkv as fq
 from esmdiff_tpu_torch.ops import quant
 from esmdiff_tpu_torch.ops import small_attention as sa
+from esmdiff_tpu_torch.utils import tracing
+
+# each kernel module's launch counter
+LAUNCHES = {fa: "flash.launches", sa: "small_attention.launches",
+            fq: "fused_qkv.launches", ff: "fused_ffn.launches",
+            quant: "int8_mm.launches"}
 
 pytestmark = pytest.mark.cuda
 TOL_MAX, TOL_MEAN = 2e-2, 2e-3
@@ -32,10 +38,10 @@ def gen():
 def _launch_and_compare(op, kernel, plain, relative=False):
     """One kernel launch (counted) against the plain version: max |d|
     (relative to max(1, |plain|) for the D=1536 reductions) and mean |d|."""
-    before = op.launches
+    before = tracing.counter(LAUNCHES[op])
     out = kernel()
     torch.cuda.synchronize()
-    assert op.launches == before + 1
+    assert tracing.counter(LAUNCHES[op]) == before + 1
     ref = plain().float()
     diff = (out.float() - ref).abs()
     scaled = diff / ref.abs().clamp_min(1.0) if relative else diff
@@ -127,9 +133,10 @@ def test_trunk_gradients_on_card(gen, monkeypatch, qkv_backend, attn_backend):
         return plain_attention_with_lengths(
             apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v, lens)
 
-    before = fa.launches + sa.launches + fq.launches
+    launched = lambda: sum(tracing.counter(LAUNCHES[m]) for m in (fa, sa, fq))
+    before = launched()
     kernel = grads(fa.flash_attention, sa.small_attention, fq.fused_ln_qkv)
-    assert fa.launches + sa.launches + fq.launches > before
+    assert launched() > before
     plain = grads(fa.flash_attention_reference, sa.small_attention_reference,
                   fq.fused_ln_qkv_reference)
     other = grads(plain_attention_with_lengths, small_normalised_first,
@@ -230,10 +237,10 @@ def test_int8_dot_on_card(gen, T, D, F):
     w = torch.randn(F, D, device="cuda", generator=gen) * D ** -0.5
     kq, scale = quant.quantize_weight(w)
     assert kq.is_contiguous() and kq.shape == (F, D)
-    before = quant.launches
+    before = tracing.counter("int8_mm.launches")
     out = quant.int8_dot(x, kq, scale)
     torch.cuda.synchronize()
-    assert quant.launches == before + 1
+    assert tracing.counter("int8_mm.launches") == before + 1
     xq, sa_ = quant.quantize_activations(x)
     o = quant.int8_mm_reference(xq, kq)
     ref = (o.float() * sa_ * scale).to(torch.bfloat16)
@@ -276,14 +283,17 @@ def test_packed_int8_trunk_on_card(gen):
             fa.flash_attention = saved
 
     with torch.no_grad():
-        before = (fa.launches, quant.launches)
+        before = (tracing.counter("flash.launches"),
+                  tracing.counter("int8_mm.launches"))
         packed = trunk(sequence_tokens=seq.reshape(B // 2, 2 * L),
                        sequence_id=packed_segment_ids(lengths, L, 2),
                        positions=packed_positions(L, 2, device="cuda"))
         packed = packed.structure_logits.reshape(B, L, -1)
         torch.cuda.synchronize()
-        assert fa.launches == before[0]           # the plain path only
-        assert quant.launches == before[1] + 4 * cfg.n_layers
+        # the plain path only
+        assert tracing.counter("flash.launches") == before[0]
+        assert tracing.counter("int8_mm.launches") == \
+            before[1] + 4 * cfg.n_layers
         kernel = unpacked(fa.flash_attention)
         plain = unpacked(fa.flash_attention_reference)
         other = unpacked(plain_attention_with_lengths)
@@ -364,12 +374,12 @@ def test_unmask_samplers_on_card(gen, mode):
         assert len(sampler.eb_steps) == 1
         return toks, sampler.eb_steps[0]
 
-    before = fa.launches
+    before = tracing.counter("flash.launches")
     toks, steps = run()
     torch.cuda.synchronize()
     assert toks.shape == (5, 100) and (toks < 4096).all()
     assert 1 <= steps <= 100
-    assert fa.launches - before == 2 * steps
+    assert tracing.counter("flash.launches") - before == 2 * steps
     again, _ = run()
     assert (again == toks).all()
 
@@ -396,12 +406,12 @@ def test_encoder_card_matches_cpu(gen):
     bb = torch.as_tensor(ESMProtein.from_pdb(
         Path(__file__).resolve().parents[1] / "data/targets/bpti/bpti.pdb"
     ).backbone()[None], dtype=torch.float32)
-    before = fa.launches
+    before = tracing.counter("flash.launches")
     with torch.no_grad():
         tokens, z, valid = enc(bb.cuda())
         ref_tokens, ref_z, ref_valid = cpu(bb)
     torch.cuda.synchronize()
-    assert fa.launches == before
+    assert tracing.counter("flash.launches") == before
     assert torch.equal(valid.cpu(), ref_valid) and ref_valid.all()
     rel = ((z.cpu() - ref_z).norm() / ref_z.norm()).item()
     assert rel <= 1e-4, rel
@@ -476,12 +486,13 @@ def test_train_step_card_matches_cpu(gen):
     before = {n: p.detach().clone() for n, p in modules.named_parameters()}
     state = tstate.create_train_state(
         modules, tstate.make_optimizer(modules.parameters(), lr=1e-4))
-    launches = fa.launches
+    launches = tracing.counter("flash.launches")
     metrics = tstate.train_step(state, lambda b, d: mdlm.loss(b, d),
                                 {k: v.cuda() for k, v in batch.items()},
                                 Draws("cuda"))
     torch.cuda.synchronize()
-    assert fa.launches - launches == 2 * cfg.n_layers - cfg.n_layers_geom
+    assert tracing.counter("flash.launches") - launches == \
+        2 * cfg.n_layers - cfg.n_layers_geom
     card_grads = {n: p.grad.float().cpu()
                   for n, p in modules.named_parameters()}
 
@@ -513,10 +524,10 @@ def test_flash_attention_vq_shape_autograd_on_card(gen):
                .requires_grad_() for _ in range(3))
     grad = torch.randn(2, 514, 20, 64, device="cuda", dtype=torch.bfloat16,
                        generator=gen)
-    before = fa.launches
+    before = tracing.counter("flash.launches")
     out = fa.FlashAttentionFunction.apply(q, k, v, None)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert tracing.counter("flash.launches") == before + 1
     ref = fa.flash_attention_reference(q.detach(), k.detach(), v.detach())
     diff = (out.detach().float() - ref.float()).abs()
     assert torch.isfinite(out).all()
@@ -585,12 +596,12 @@ def test_vq_step_card_matches_cpu(gen):
         block.attn.attn_backend = "auto"
     state = tstate.create_train_state(model, tstate.make_optimizer(
         model.parameters(), lr=1e-4))
-    launches = fa.launches
+    launches = tracing.counter("flash.launches")
     metrics = tstate.train_step(
         state, lambda b, d: tvq.batch_loss(model, b, loss_cfg),
         tvq.gather_batch(coords, lengths, idx, "cuda"), None)
     torch.cuda.synchronize()
-    assert fa.launches - launches == 2 * dec.n_layers
+    assert tracing.counter("flash.launches") - launches == 2 * dec.n_layers
     card_grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
 
     def rel(a, b):
@@ -666,11 +677,11 @@ def test_ar_path_flash_launches(gen, tmp_path):
         device="cuda")
     bpti = Path(__file__).resolve().parents[1] / "data/targets/bpti"
     for model_type in ("clm", "jlm"):
-        before = fa.launches
+        before = tracing.counter("flash.launches")
         sample_ar.main(["--input", str(bpti), "--output",
                         str(tmp_path / model_type), "--model_type",
                         model_type, "--model_scale", "tiny", "--n_samples",
                         "40", "--batch_size", "16"], runtime=runtime)
         torch.cuda.synchronize()
-        assert fa.launches - before == 2 + 2 * 2
+        assert tracing.counter("flash.launches") - before == 2 + 2 * 2
         assert (tmp_path / model_type / "bpti.pdb").exists()

@@ -132,7 +132,7 @@ def test_fast_dev_run_with_check_nans(corpus, tmp_path):
 
 def test_profile_steps_write_a_trace(corpus, tmp_path):
     """profile_steps=1: local step 1 is traced (torch.profiler) into
-    <ckpt_dir>/profile."""
+    <ckpt_dir>/profile, with the tracer's spans of that step beside it."""
     cfg = tconfig.load_config(None, [
         f"data.path={corpus}", "data.batch_size=2", "data.max_len=32",
         *TINY, "trainer.max_epochs=1", "trainer.profile_steps=1",
@@ -141,6 +141,11 @@ def test_profile_steps_write_a_trace(corpus, tmp_path):
     trace = json.loads((tmp_path / "prof" / "profile" / "trace.json")
                        .read_text())
     assert trace["traceEvents"]
+    spans = json.loads((tmp_path / "prof" / "profile" / "spans.json")
+                       .read_text())
+    names = [sp["name"] for sp in spans["spans"]]
+    assert names.count("train.step") == 1
+    assert "train.step" in {e.get("name") for e in trace["traceEvents"]}
 
 
 def test_overfit_batches_lowers_the_loss(corpus, tmp_path):
