@@ -13,7 +13,10 @@ Phases, each of which fails loudly (no error is caught):
      fused LN/projection kernels on layer 0's weights of the full-width
      runtime, at a row count that is not a multiple of the row tile too,
      and at T/M 64; both also at D 512 on random weights, H 1536 for
-     fused_ffn), and time, in device time (tools/timing.py), the kernel,
+     fused_ffn; the q/k LayerNorm + rotary at the trunk's L 128 forward,
+     B 64 x D 1536, and the decoder's chunk, B 32 x D 1280, on their
+     layer 0's scales, with per-row tables and at a ragged T), and time,
+     in device time (tools/timing.py), the kernel,
      the plain version and the PyTorch library call that computes the same
      function, or for the fused projections only their products (a
      yardstick: the port never calls it), beside the bound from the bytes
@@ -27,11 +30,12 @@ Phases, each of which fails loudly (no error is caught):
      packed rows take the plain masked attention, so only the decoder runs
      the kernel) and a 118-residue chain (bucket 128, pack 1, so every trunk
      layer runs it); one untimed request over both, then each target timed
-     with every kernel launch counted against its plan; then one
-     full-width trunk forward with the kernel against the same forward
-     with its plain version (within twice the spread of two plain
-     roundings; the patched ops must launch their kernels in the kernel
-     forward only);
+     with every kernel launch counted against its plan (the q/k LayerNorm
+     + rotary 48 a trunk forward, packed or not, and 30 a decode chunk);
+     then one full-width trunk forward with the kernels (flash, q/k
+     LayerNorm + rotary) against the same forward with their plain
+     versions (within twice the spread of two plain roundings; the
+     patched ops must launch their kernels in the kernel forward only);
   4. the fused path: the same trunk weights in the configuration
      qkv_backend="fused", attn_backend="small" (the decoder and the sigma
      embedder shared), driven and checked the same way;
@@ -54,7 +58,9 @@ Phases, each of which fails loudly (no error is caught):
      logits packed (pack 2) against unpacked at B 64, L 64 (against the
      unpacked plain path within the spread of two plain roundings, against
      the kernel path within twice it, and two planted faults, a segment
-     leak and a bf16 packed trunk, read above that limit), then the port's
+     leak and a bf16 packed trunk, read above that limit; the q/k
+     LayerNorm + rotary kernel on the int8 projection's output against its
+     plain version within twice it), then the port's
      server on 127.0.0.1 over HTTP: /warmup (with a cross-length packed
      run), BPTI x 100 (the plan [64, 32, 8], pack 2: a 100-MODEL PDB),
      three concurrent requests of 58, 120 and 250 residues coalesced into
@@ -277,18 +283,22 @@ INPAINT_SPANS = {"bpti": range(10, 25), "1jm4.B": range(40, 58)}
 # at batch 16: the CLI's default 32 does not fit 20 steps in 80 GB (the
 # probe prints batch 32's peak over two steps; PERF.md, tokenizer)
 VQ_DIRS, VQ_STEPS, VQ_BATCH, VQ_PROBE = ("apo", "codnas", "ped"), 20, 16, 32
-KERNELS = ("flash_attention", "small_attention", "fused_qkv", "fused_ffn")
+KERNELS = ("flash_attention", "small_attention", "fused_qkv", "fused_ffn",
+           "qk_norm_rotary")
 # each kernel module's launch counter (utils/tracing.py)
 LAUNCH_COUNTERS = {"flash_attention": "flash.launches",
                    "small_attention": "small_attention.launches",
                    "fused_qkv": "fused_qkv.launches",
                    "fused_ffn": "fused_ffn.launches",
+                   "qk_norm_rotary": "qk_norm_rotary.launches",
                    "quant": "int8_mm.launches"}
 REPLACES = {
     "flash_attention": "esmdiff_tpu/ops/flash_attention.py:37",
     "small_attention": "esmdiff_tpu/ops/small_attention.py:55",
     "fused_qkv": "esmdiff_tpu/ops/fused_qkv.py:41",
     "fused_ffn": "esmdiff_tpu/ops/fused_ffn.py:34",
+    # XLA fuses the chain on the TPU: no Pallas kernel
+    "qk_norm_rotary": "none",
 }
 
 
@@ -493,6 +503,49 @@ def check_fused_ffn(torch, ff, weights, M, gen):
     }
 
 
+def check_qk_norm_rotary(torch, qkr, scales, B, L, D, gen, tables="shared"):
+    """q/k LayerNorm + rotary kernel vs plain version (the module chain it
+    replaces, on the card), q and k strided views of one (B, L, 3D) bf16
+    product as the attention passes them; ``scales`` (q_ln, k_ln) of layer
+    0 of the model of this width.  ``tables``: "shared" (L, 64) or
+    "per_row" (B, L, 64), rows of 1, 2 and 4 packed segments.  No library
+    call computes this chain: library_ms is None."""
+    from esmdiff_tpu_torch.nn.rotary import rotary_tables
+    from esmdiff_tpu_torch.ops.packing import packed_positions
+
+    qkv = torch.randn(B, L, 3 * D, device="cuda", dtype=torch.bfloat16,
+                      generator=gen)
+    q, k, _ = qkv.split(D, dim=-1)
+    if tables == "per_row":
+        pos = torch.stack([packed_positions(L // n, n, device="cuda")
+                           for n in ((1, 2, 4)[b % 3] for b in range(B))])
+        cos, sin = rotary_tables(L, 64, device="cuda", positions=pos)
+    else:
+        cos, sin = rotary_tables(L, 64, device="cuda")
+    args = (q, k, *scales, cos, sin)
+    before = launches_of(qkr)
+    out = qkr.qk_norm_rotary(*args)
+    if launches_of(qkr) != before + 1:
+        raise AssertionError("qk_norm_rotary: not one launch a call")
+    ref = qkr.qk_norm_rotary_reference(*args)
+    res = [compare(torch, "qk_norm_rotary", o, r, (B, L, D, tables),
+                   relative=True) for o, r in zip(out, ref)]
+    # q and k read, their outputs written, the scales and tables once
+    nbytes = 8 * B * L * D + 2 * 4 * D + 2 * 4 * cos.numel()
+    return {
+        "B": B, "L": L, "D": D, "tables": tables,
+        **{key: max(r[key] for r in res) for key in res[0]},
+        "ms": device_ms(lambda: qkr.qk_norm_rotary(*args)),
+        "host_ms_per_call": host_ms(lambda: qkr.qk_norm_rotary(*args)),
+        "plain_ms": device_ms(lambda: qkr.qk_norm_rotary_reference(*args)),
+        "plain_host_ms_per_call": host_ms(
+            lambda: qkr.qk_norm_rotary_reference(*args)),
+        "library_ms": None,
+        # LayerNorm about 5 fp32 operations a value, rotary 3
+        **bound(0.0, nbytes, fp32_flops=16.0 * B * L * D),
+    }
+
+
 def ptxas_summary(log):
     """Per compiled kernel: registers, spill bytes, static shared memory
     (the attention kernels' shared memory is dynamic)."""
@@ -575,6 +628,19 @@ def kernel_vs_plain(torch, runtime, kernel, plain, other,
     return rel(logits[0], logits[1]), rel(logits[2], logits[1])
 
 
+def xla_path_patches(ops):
+    """(plain, other) patches for ``kernel_vs_plain`` on the "xla" QKV
+    path: flash attention to its plain version and to the plain path's
+    other rounding; the q/k LayerNorm + rotary to its plain version on
+    both (the module chain: the JAX package has no other form of it)."""
+    from esmdiff_tpu_torch.nn.attention import plain_attention_with_lengths
+
+    fa, qkr = ops["flash_attention"], ops["qk_norm_rotary"]
+    chain = {(qkr, "qk_norm_rotary"): qkr.qk_norm_rotary_reference}
+    return ({(fa, "flash_attention"): fa.flash_attention_reference, **chain},
+            {(fa, "flash_attention"): plain_attention_with_lengths, **chain})
+
+
 def path_launches(trunk_cfg, dec_layers, lw, fused, forwards=None,
                   num_samples=NUM_SAMPLES):
     """Each kernel's launches for one target's request of ``num_samples``
@@ -582,6 +648,8 @@ def path_launches(trunk_cfg, dec_layers, lw, fused, forwards=None,
     batch i (ddpm: NUM_STEPS + 1 each), each layer's attention on the
     kernel only where the batch's pack factor is 1 (packed rows take the
     plain masked path), and one decoder launch per layer and decode
+    chunk.  The q/k LayerNorm + rotary kernel: one a layer of every
+    forward on the "xla" QKV path, packed or not, and of every decode
     chunk."""
     from esmdiff_tpu_torch.api.generation import bucket_length, plan_batches
     from esmdiff_tpu_torch.ops.packing import pack_factor
@@ -595,9 +663,11 @@ def path_launches(trunk_cfg, dec_layers, lw, fused, forwards=None,
     decoder = dec_layers * -(-num_samples // DECODE_BATCH)
     if not fused:
         return {"flash_attention": unpacked + decoder, "small_attention": 0,
-                "fused_qkv": 0, "fused_ffn": 0}
+                "fused_qkv": 0, "fused_ffn": 0,
+                "qk_norm_rotary": layers * sum(forwards) + decoder}
     return {"flash_attention": decoder, "small_attention": unpacked,
-            "fused_qkv": layers * sum(forwards), "fused_ffn": 0}
+            "fused_qkv": layers * sum(forwards), "fused_ffn": 0,
+            "qk_norm_rotary": decoder}
 
 
 def drive(torch, runtime, ops, name, targets, out_dir, mode="ddpm",
@@ -940,8 +1010,7 @@ def gibbs_path(torch, runtime, ops, target_dirs, lws, gen):
 
     rel, floor = kernel_vs_plain(
         torch, stock_rt,
-        {}, {(fa, "flash_attention"): fa.flash_attention_reference},
-        {(fa, "flash_attention"): plain_attention_with_lengths})
+        {}, *xla_path_patches(ops))
     if not rel <= 2 * floor:
         raise AssertionError(f"full-width stock-head trunk logits, kernel vs "
                              f"plain version: relative L2 {rel}, more than "
@@ -982,7 +1051,7 @@ def serve_path(torch, runtime, ops, card, gen):
     from esmdiff_tpu_torch.ops import quant
     from esmdiff_tpu_torch.ops.packing import pack_factor
 
-    fa = ops["flash_attention"]
+    fa, qkr = ops["flash_attention"], ops["qk_norm_rotary"]
     t0 = time.time()
     args = server.get_argparser().parse_args(["--quant", "int8", "--mode",
                                               "ddpm", "--seed", "0"])
@@ -1018,6 +1087,16 @@ def serve_path(torch, runtime, ops, card, gen):
     other = int8_logits(torch, fa, trunk, toks, lengths,
                         flash=plain_attention_with_lengths)
     bf16 = int8_logits(torch, fa, runtime.trunk, toks, lengths)
+    # the q/k LayerNorm + rotary kernel on the QuantDense's bf16 output
+    # against its plain version, the other kernels as in ``kernel``
+    before = launches_of(qkr)
+    chain = trunk_logits(
+        torch, trunk,
+        {(qkr, "qk_norm_rotary"): qkr.qk_norm_rotary_reference},
+        lambda torch, t: int8_logits(torch, fa, t, toks, lengths))
+    if launches_of(qkr) != before:
+        raise AssertionError("the int8 gate's patch missed the q/k "
+                             "LayerNorm + rotary call site")
     # two planted faults the packing gate must read above its limit: a
     # segment mask that lets a row's segments see each other, and a packed
     # trunk that runs bf16 in place of int8
@@ -1037,12 +1116,14 @@ def serve_path(torch, runtime, ops, card, gen):
             "plain_roundings": rel(other, plain),
             "packed_vs_unpacked_same_rounding": rel(packed, other),
             "int8_vs_bf16": rel(kernel, bf16),
+            "qk_norm_rotary_kernel_vs_plain": rel(kernel, chain),
             "planted_segment_leak": rel(leak, other),
             "planted_bf16_packed": rel(bf16_packed, other)}
     limit = gate["plain_roundings"]
     if not (torch.isfinite(packed[valid]).all()
             and gate["packed_vs_unpacked_same_rounding"] <= limit
-            and gate["packed_vs_unpacked"] <= 2 * limit):
+            and gate["packed_vs_unpacked"] <= 2 * limit
+            and gate["qk_norm_rotary_kernel_vs_plain"] <= 2 * limit):
         raise AssertionError(f"int8 trunk logits, packed vs unpacked: {gate}")
     if not min(gate["planted_segment_leak"],
                gate["planted_bf16_packed"]) > limit:
@@ -1077,7 +1158,9 @@ def serve_path(torch, runtime, ops, card, gen):
             "flash_attention": (n_layers * (NUM_STEPS + 1)
                                 * sum(p == 1 for p in packs)
                                 + rt.decoder.cfg.n_layers * decode_chunks),
-            "int8_products": 4 * n_layers * (NUM_STEPS + 1) * len(plan)}
+            "int8_products": 4 * n_layers * (NUM_STEPS + 1) * len(plan),
+            "qk_norm_rotary": (n_layers * (NUM_STEPS + 1) * len(plan)
+                               + rt.decoder.cfg.n_layers * decode_chunks)}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         start = {k: launches_of(op) for k, op in ops.items()}
@@ -1096,6 +1179,8 @@ def serve_path(torch, runtime, ops, card, gen):
         if (bpti_launches["flash_attention"] != want_bpti["flash_attention"]
                 or bpti_launches["int8_products"]
                 != want_bpti["int8_products"]
+                or bpti_launches["qk_norm_rotary"]
+                != want_bpti["qk_norm_rotary"]
                 or any(launches[k] for k in ("small_attention", "fused_qkv",
                                               "fused_ffn"))):
             raise AssertionError(f"serve path, BPTI: launches "
@@ -1445,9 +1530,7 @@ def inpaint_path(torch, runtime, stock_rt, ops, target_dirs, lws, card):
 
     rel, floor = kernel_vs_plain(
         torch, runtime,
-        {}, {(fa, "flash_attention"): fa.flash_attention_reference},
-        {(fa, "flash_attention"): plain_attention_with_lengths},
-        forward=with_coords)
+        {}, *xla_path_patches(ops), forward=with_coords)
     if not rel <= 2 * floor:
         raise AssertionError(f"full-width trunk logits with coordinates, "
                              f"kernel vs plain version: relative L2 {rel}, "
@@ -2267,18 +2350,22 @@ AR_INT8_SAMPLES = AR_CKPT_SAMPLES = 32
 
 
 def ar_launches(runtime, cfg, model_type, lw, num_samples, quant):
-    """Launches of one target's AR request: flash, the trunk forward (a
-    launch a layer) and one VQ decoder call a layer for each chunk of 32
-    rows; the AR net's int8 products with ``quant``, a batch: the CLM's
+    """Launches of one target's AR request: flash and the q/k LayerNorm +
+    rotary, each the trunk forward (a launch a layer) and one VQ decoder
+    call a layer for each chunk of 32 rows (the AR nets run neither); the
+    AR net's int8 products with ``quant``, a batch: the CLM's
     encoder 7 a layer, its cross K/V 2 a layer and 9 a decoder layer in
     each of the lw steps; the JLM's prefill and lw - 1 steps 4 a layer
     each."""
     batches = -(-num_samples // AR_BATCH)
     per_batch = (cfg.n_layers * (7 + 2 + 9 * lw) if model_type == "clm"
                  else cfg.n_layers * 4 * lw)
-    return {"flash_attention": runtime.trunk.cfg.n_layers
-            + runtime.decoder.cfg.n_layers * -(-num_samples // DECODE_BATCH),
+    trunk_and_decoder = (runtime.trunk.cfg.n_layers
+                         + runtime.decoder.cfg.n_layers
+                         * -(-num_samples // DECODE_BATCH))
+    return {"flash_attention": trunk_and_decoder,
             "small_attention": 0, "fused_qkv": 0, "fused_ffn": 0,
+            "qk_norm_rotary": trunk_and_decoder,
             "int8": per_batch * batches if quant else 0}
 
 
@@ -3042,8 +3129,7 @@ def weights_path(torch, ops, card, target_dirs, lws, default_targets,
                              f"file's: {differ[:8]}")
     kernel = trunk_logits(torch, rt, {})
     rel, floor = kernel_vs_plain(
-        torch, rt, {}, {(fa, "flash_attention"): fa.flash_attention_reference},
-        {(fa, "flash_attention"): plain_attention_with_lengths})
+        torch, rt, {}, *xla_path_patches(ops))
     seq = rt.seq_tokenizer.encode(target_sequence(ROOT / TARGET))
     with torch.no_grad():
         oracle = tv.oracle_trunk_logits(
@@ -4332,11 +4418,12 @@ def main() -> int:
     from esmdiff_tpu_torch.ops import flash_attention as fa
     from esmdiff_tpu_torch.ops import fused_ffn as ff
     from esmdiff_tpu_torch.ops import fused_qkv as fq
+    from esmdiff_tpu_torch.ops import qk_norm_rotary as qkr
     from esmdiff_tpu_torch.ops import small_attention as sa
     from esmdiff_tpu_torch.ops.packing import pack_factor
 
     ops = {"flash_attention": fa, "small_attention": sa, "fused_qkv": fq,
-           "fused_ffn": ff}
+           "fused_ffn": ff, "qk_norm_rotary": qkr}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -4367,8 +4454,12 @@ def main() -> int:
     # keeps in shared memory); the projections at the trunk's T = 4096
     # tokens (64 x 64), at 1000 (not a multiple of their row tiles) and
     # below one row tile (64), and at their narrowest width (D 512, random
-    # weights; fused_ffn at H 1536, the SwiGLU hidden width of D 512)
+    # weights; fused_ffn at H 1536, the SwiGLU hidden width of D 512); the
+    # q/k LayerNorm + rotary at the trunk's L 128 forward (B 64, D 1536)
+    # and the decoder's chunk (B 32, L 128, D 1280) on their layer 0's
+    # scales, with per-row tables (mixed packed rows) and a ragged T
     gen = torch.Generator(device="cuda").manual_seed(0)
+    dec_attn0 = runtime.decoder.decoder_stack.blocks[0].attn
     torch.set_grad_enabled(False)  # inference throughout, as the CLI runs
     shapes = {
         "flash_attention": [check_flash_attention(torch, fa, B, L, H, gen)
@@ -4393,6 +4484,13 @@ def main() -> int:
             M, gen) for M, D, H in ((4096, 1536, 4096), (1000, 1536, 4096),
                                     (64, 1536, 4096), (4096, 512, 1536),
                                     (64, 512, 1536))],
+        "qk_norm_rotary": [check_qk_norm_rotary(
+            torch, qkr, (attn.q_ln.scale, attn.k_ln.scale), B, L,
+            attn.d_model, gen, tables)
+            for attn, B, L, tables in ((layer0.attn, 64, 128, "shared"),
+                                       (dec_attn0, 32, 128, "shared"),
+                                       (layer0.attn, 32, 128, "per_row"),
+                                       (layer0.attn, 3, 7, "shared"))],
     }
     ffn_phase_launches = launches_of(ff)
     for name, rows in shapes.items():
@@ -4441,8 +4539,7 @@ def main() -> int:
     launches = summed(driven)
     rel, floor = kernel_vs_plain(
         torch, runtime,
-        {}, {(fa, "flash_attention"): fa.flash_attention_reference},
-        {(fa, "flash_attention"): plain_attention_with_lengths})
+        {}, *xla_path_patches(ops))
     if not rel <= 2 * floor:
         raise AssertionError(f"full-width trunk logits, kernel vs plain "
                              f"version: relative L2 {rel}, more than twice "
@@ -4532,8 +4629,11 @@ def main() -> int:
         torch, ops, card, mdlm_ckpt, export)
     shutil.rmtree(export.parent)
     shutil.rmtree(mdlm_ckpt.parent)  # the run; the corpus beside it stays
+    # every AR request is checked for as many q/k LayerNorm + rotary
+    # launches as flash launches (ar_launches)
     a_launches = {**dict.fromkeys(KERNELS, 0),
-                  "flash_attention": a_flash + ckpt_flash}
+                  "flash_attention": a_flash + ckpt_flash,
+                  "qk_norm_rotary": a_flash + ckpt_flash}
     print("[ar path] " + json.dumps(a_numbers), flush=True)
 
     # 11. the eval path: esmdiff-torch-analyze bpti, apo and ped on the
@@ -4579,25 +4679,29 @@ def main() -> int:
 
     # 15. the kernels line (headline shape: the trunk's), the device line;
     # launches from the paths that run the kernel, fused_ffn's from its
-    # phase (no model path runs it)
+    # phase (no model path runs it); None where a path does not return a
+    # kernel's launches (the q/k LayerNorm + rotary's in the paths that
+    # return flash's alone)
+    flash_only = {**dict.fromkeys(KERNELS, 0), "qk_norm_rotary": None}
     by_path = {"default path": launches, "fused path": f_launches,
                "gibbs path": g_launches, "serve path": s_launches,
                "inpaint path": i_launches,
-               "train path": {**dict.fromkeys(KERNELS, 0), **t_launches},
-               "vqvae path": {**dict.fromkeys(KERNELS, 0), **v_launches},
+               "train path": {**flash_only, **t_launches},
+               "vqvae path": {**flash_only, **v_launches},
                "ar path": a_launches, "eval path": e_launches,
-               "weights path": {**dict.fromkeys(KERNELS, 0),
-                                "flash_attention": w_flash},
-               "pipeline path": {**dict.fromkeys(KERNELS, 0),
-                                 "flash_attention": p_flash},
-               "parallel path": {**dict.fromkeys(KERNELS, 0),
+               "weights path": {**flash_only, "flash_attention": w_flash},
+               "pipeline path": {**flash_only, "flash_attention": p_flash},
+               "parallel path": {**flash_only,
                                  "flash_attention": par_flash}}
     launches_from = {"flash_attention": ("default path", "inpaint path",
                                          "train path", "vqvae path",
                                          "ar path", "weights path",
                                          "pipeline path", "parallel path"),
                      "small_attention": ("fused path",),
-                     "fused_qkv": ("fused path",)}
+                     "fused_qkv": ("fused path",),
+                     "qk_norm_rotary": ("default path", "fused path",
+                                        "gibbs path", "serve path",
+                                        "inpaint path", "ar path")}
     entries = []
     for name in KERNELS:
         head = shapes[name][0]

@@ -11,7 +11,9 @@ hand-written CUDA counterpart (``ops/*.py`` over ``csrc/*.cu``, built by
 ``ops/_build.py``): flash attention on the default path, fused LN + QKV +
 QK-LN and rotary-fused attention in the trunk's ``qkv_backend="fused"``,
 ``attn_backend="small"`` configuration, and the fused SwiGLU FFN as a
-public function.
+public function.  One kernel replaces no Pallas kernel: the q/k LayerNorm
+and rotary (``ops/qk_norm_rotary.py``), which the attention takes in
+place of 20 separate launches when autograd does not record.
 
 Numerics: float32 matmuls run in full float32, never TF32, so a float32 run
 on the card is comparable with the JAX reference.  Both switches are set here,

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from esmdiff_tpu_torch.ops import fused_qkv as qkv_ops
+from esmdiff_tpu_torch.ops import qk_norm_rotary as qkr_ops
 from esmdiff_tpu_torch.ops import small_attention as small_ops
 from esmdiff_tpu_torch.ops.quant import QuantDense
 
@@ -93,6 +94,10 @@ class MultiHeadAttention(nn.Module):
 
     qkv_backend: "xla" = LayerNorm, Dense and q/k LayerNorm as separate
     ops; "fused" = one kernel (``ops/fused_qkv.py``) on the same parameters.
+    With "xla", no ``tp``, bf16 heads of 64, an ``attn_backend`` other than
+    "small" and autograd not recording (sampling, decoding), the q/k
+    LayerNorm and rotary are one kernel (``ops/qk_norm_rotary.py``, which
+    has no backward) that computes the same chain.
     attn_backend: "small" = rotary fused into the attention kernel
     (``ops/small_attention.py``) when there is no mask, else rotary and
     ``plain_attention``, as in JAX; "auto", "flash" and "xla" = rotary, then
@@ -140,6 +145,7 @@ class MultiHeadAttention(nn.Module):
         tp = self.tp
         heads = self.n_heads if tp is None else self.n_heads // tp.size
         d = heads * dh
+        rotated = False
         if self.qkv_backend == "fused":
             # weight.t() is a (D, 3D) view: the kernel reads it in place
             qkv = kernel_op(qkv_ops.FusedLnQkvFunction, qkv_ops.fused_ln_qkv)(
@@ -148,7 +154,16 @@ class MultiHeadAttention(nn.Module):
             q, k, v = qkv.split(self.d_model, dim=-1)
         elif tp is None:
             q, k, v = self.qkv(self.ln(x)).split(self.d_model, dim=-1)
-            q, k = self.q_ln(q), self.k_ln(k)
+            rotated = (self.attn_backend != "small"
+                       and q.dtype == torch.bfloat16
+                       and dh == qkr_ops.HEAD_DIM
+                       and not torch.is_grad_enabled())
+            if rotated:
+                q, k = qkr_ops.qk_norm_rotary(q, k, self.q_ln.scale,
+                                              self.k_ln.scale, rot_cos,
+                                              rot_sin)
+            else:
+                q, k = self.q_ln(q), self.k_ln(k)
         else:
             q, k, v = self.qkv(tp.copy(self.ln(x))).split(d, dim=-1)
             q = tp.layer_norm(q, self.q_ln.scale)
@@ -161,8 +176,9 @@ class MultiHeadAttention(nn.Module):
                           small_ops.small_attention)(q, k, v, rot_cos,
                                                      rot_sin, lengths)
         else:
-            q = apply_rotary(q, rot_cos, rot_sin)
-            k = apply_rotary(k, rot_cos, rot_sin)
+            if not rotated:
+                q = apply_rotary(q, rot_cos, rot_sin)
+                k = apply_rotary(k, rot_cos, rot_sin)
             o = dot_product_attention(
                 q, k, v, mask=mask, lengths=lengths,
                 backend="xla" if self.attn_backend == "small"

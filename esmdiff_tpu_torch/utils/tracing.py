@@ -25,7 +25,8 @@ Counters.  ``count(name, n)`` adds host-side integers, on or off; counts
 are made only from values already on the host, never by reading the
 device.  The kernels' launches (``flash.launches``,
 ``small_attention.launches``, ``fused_qkv.launches``,
-``fused_ffn.launches``, ``int8_mm.launches``) are counters too.
+``fused_ffn.launches``, ``int8_mm.launches``,
+``qk_norm_rotary.launches``) are counters too.
 
 ``records(since=mark())`` gives the spans and counters as plain data;
 ``reset()`` clears them.  ``start_profiler``/``stop_profiler`` run a

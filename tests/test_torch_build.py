@@ -9,7 +9,8 @@ import pytest
 
 from esmdiff_tpu_torch.ops import _build
 
-KERNELS = ("flash_attention", "small_attention", "fused_qkv", "fused_ffn")
+KERNELS = ("flash_attention", "small_attention", "fused_qkv", "fused_ffn",
+           "qk_norm_rotary")
 
 
 @pytest.fixture

@@ -15,6 +15,7 @@ from esmdiff_tpu_torch.nn.rotary import apply_rotary, rotary_tables
 from esmdiff_tpu_torch.ops import flash_attention as fa
 from esmdiff_tpu_torch.ops import fused_ffn as ff
 from esmdiff_tpu_torch.ops import fused_qkv as fq
+from esmdiff_tpu_torch.ops import qk_norm_rotary as qkr
 from esmdiff_tpu_torch.ops import quant
 from esmdiff_tpu_torch.ops import small_attention as sa
 from esmdiff_tpu_torch.utils import tracing
@@ -22,7 +23,7 @@ from esmdiff_tpu_torch.utils import tracing
 # each kernel module's launch counter
 LAUNCHES = {fa: "flash.launches", sa: "small_attention.launches",
             fq: "fused_qkv.launches", ff: "fused_ffn.launches",
-            quant: "int8_mm.launches"}
+            quant: "int8_mm.launches", qkr: "qk_norm_rotary.launches"}
 
 pytestmark = pytest.mark.cuda
 TOL_MAX, TOL_MEAN = 2e-2, 2e-3
@@ -175,6 +176,69 @@ def test_fused_qkv_on_card(gen, T, layout, D):
                         relative=True)
 
 
+def _bf16_ulp(x):
+    """One bf16 ulp at each element of ``x``: 2^(exponent - 7), normals."""
+    _, e = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("B,L,D,tables", [
+    (64, 128, 1536, "shared"),     # the trunk's forward at L 128
+    (32, 128, 1280, "shared"),     # the VQ decoder: 20 heads
+    (8, 128, 1536, "per_row"),     # mixed packed rows' (B, L, 64) tables
+    (3, 7, 1536, "shared"),        # 42 rows: a ragged last block of 8
+    (5, 12, 1280, "per_row"),
+    (64, 128, 1536, "int8")])      # int8 serving: a QuantDense's output
+def test_qk_norm_rotary_on_card(gen, B, L, D, tables):
+    """The kernel against its plain version, q and k strided views of one
+    (B, L, 3D) bf16 product as the trunk passes them ("int8": the product
+    of a QuantDense, as the int8 trunk passes them; (L, 64) tables).  Both
+    round to bf16 at the same two points, so each element is within one
+    bf16 ulp at each: the kernel sums the LayerNorm statistics in another
+    order than PyTorch's kernel, so a normalised value y may round to its
+    neighbour (1 ulp of y, carried into the output through cos and sin),
+    and the output may round to its neighbour (1 ulp of the output)."""
+    if tables == "int8":
+        dense = quant.QuantDense(D, 3 * D).cuda()
+        w = torch.randn(3 * D, D, device="cuda", generator=gen) * D ** -0.5
+        dense.kernel_q, dense.scale = quant.quantize_weight(w)
+        qkv = dense(torch.randn(B, L, D, device="cuda", generator=gen).to(
+            torch.bfloat16))
+        assert qkv.dtype == torch.bfloat16 and qkv.shape == (B, L, 3 * D)
+    else:
+        qkv = torch.randn(B, L, 3 * D, device="cuda", generator=gen,
+                          dtype=torch.bfloat16) * 2 + 0.25
+    q, k, _ = qkv.split(D, dim=-1)
+    qs, ks = (1 + 0.2 * torch.randn(D, device="cuda", generator=gen)
+              for _ in range(2))
+    if tables == "per_row":
+        from esmdiff_tpu_torch.ops.packing import packed_positions
+        # rows of 1, 2 and 4 packed segments
+        pos = torch.stack([packed_positions(L // n, n, device="cuda")
+                           for n in ((1, 2, 4)[b % 3] for b in range(B))])
+        cos, sin = rotary_tables(L, 64, device="cuda", positions=pos)
+    else:
+        cos, sin = rotary_tables(L, 64, device="cuda")
+    before = tracing.counter("qk_norm_rotary.launches")
+    got = qkr.qk_norm_rotary(q, k, qs, ks, cos, sin)
+    torch.cuda.synchronize()
+    assert tracing.counter("qk_norm_rotary.launches") == before + 1
+    want = qkr.qk_norm_rotary_reference(q, k, qs, ks, cos, sin)
+    c = (cos if cos.dim() == 3 else cos[None]).float()[:, :, None, :]
+    s = (sin if sin.dim() == 3 else sin[None]).float()[:, :, None, :]
+    for x, scale, o, r in ((q, qs, got[0], want[0]), (k, ks, got[1], want[1])):
+        assert o.shape == r.shape == (B, L, D // 64, 64) and o.is_contiguous()
+        assert o.dtype == torch.bfloat16 and torch.isfinite(o).all()
+        y = torch.nn.functional.layer_norm(x.float(), (D,), scale, None,
+                                           1e-5).to(torch.bfloat16)
+        y = y.reshape(B, L, D // 64, 64)
+        partner = torch.cat([y[..., 32:], y[..., :32]], dim=-1)
+        tol = (_bf16_ulp(r) + c.abs() * _bf16_ulp(y)
+               + s.abs() * _bf16_ulp(partner))
+        diff = (o.float() - r.float()).abs()
+        assert (diff <= tol).all(), (diff - tol).max().item()
+
+
 def _padded_t(w):
     """w.t() of a view whose leading stride is w's width + 8: 16 bytes
     wider, not 32."""
@@ -222,6 +286,12 @@ def test_kernels_reject_what_they_do_not_take(gen):
     q = torch.randn(1, 8, 2, 32, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="Dh=64"):
         fa.flash_attention(q, q, q)
+    # rows 129 elements apart: not 16-byte loads
+    x3 = torch.randn(2, 8, 129, device="cuda", dtype=torch.bfloat16)[..., 1:]
+    s128 = torch.ones(128, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        qkr.qk_norm_rotary(x3, x3, s128, s128,
+                           *rotary_tables(8, 64, device="cuda"))
 
 
 # the trunk's four int8 products (D -> 3D, D -> D, D -> 2H, H -> D) at its
