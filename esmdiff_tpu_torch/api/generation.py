@@ -3,7 +3,8 @@ the memory-aware batch planner, length buckets, per-row seeding, sequence
 packing of short buckets, the ddpm engines (solo, same-bucket coalesced,
 cross-length packed, and the cost-routed mixed one that picks between the
 last two), the gibbs engines (solo, coalesced, and mixed as per-bucket
-sub-groups), the eb engine, inpainting from an encoded structure (ddpm's
+sub-groups), the eb engine, block diffusion over an SDAR trunk
+(``block_ensemble``), inpainting from an encoded structure (ddpm's
 ``mask_ids``/``filled_ids``, gibbs's coordinate prior), and the batched VQ
 decode, also coalesced across requests.
 
@@ -50,6 +51,7 @@ import torch
 
 from esmdiff_tpu_torch.core import constants as C
 from esmdiff_tpu_torch.core.tokenizer import StructureTokenizer
+from esmdiff_tpu_torch.diffusion.block import block_sample
 from esmdiff_tpu_torch.diffusion.gibbs import (RowGeneratorUniform,
                                                UniformSource,
                                                entropy_bounded_unmask_sample,
@@ -58,6 +60,7 @@ from esmdiff_tpu_torch.diffusion.mdlm import (MDLM, MDLMConfig, NoiseSource,
                                               RowGeneratorNoise, count_trunk,
                                               shield_special_tokens)
 from esmdiff_tpu_torch.diffusion.noise import LogLinearNoise, Noise
+from esmdiff_tpu_torch.models.sdar import SEQUENCE_OFFSET, STRUCTURE_CODES
 from esmdiff_tpu_torch.ops.packing import (PACK_TARGET_LEN, pack_factor,
                                            packed_positions,
                                            packed_segment_ids,
@@ -93,7 +96,9 @@ def plan_batches(length_with_specials: int, num_samples: int,
     Batch sizes come from the power-of-two ladder (>= 8, capped by the
     memory budget; the JAX package's mesh ``granularity`` is 1 here).
     ``"ladder"`` walks the ladder greedily downward (100 -> 64+32+8);
-    ``"single"`` uses one size for every batch (100 -> [64, 64]).  Callers
+    ``"single"`` uses one size for every batch (100 -> [64, 64]);
+    ``"even"`` takes the fewest batches the cap allows, of one size off the
+    ladder (100 at a cap of 128 -> [100]; 200 -> [100, 100]).  Callers
     trim the surplus rows."""
     per = max(1, budget // (length_with_specials * length_with_specials))
     if max_batch is not None:
@@ -109,6 +114,9 @@ def plan_batches(length_with_specials: int, num_samples: int,
         b = 1 << max(1, num_samples).bit_length() - 1
         b = cap(max(min_b, b))
         return [b] * (-(-num_samples // b))
+    if policy == "even":
+        k = -(-max(1, num_samples) // per)
+        return [-(-max(1, num_samples) // k)] * k
     if policy != "ladder":
         raise ValueError(f"unknown plan policy: {policy!r}")
 
@@ -259,6 +267,10 @@ class EnsembleSampler:
         # the step count of each batch (each part of a split batch) of the
         # last eb_ensemble call
         self.eb_steps: list[int] = []
+        # block_ensemble's steps and commits as CUDA graphs on a card,
+        # captured once a batch shape (diffusion/block.py), or eagerly
+        self.block_graphs = True
+        self.block_forwards: dict = {}
 
     def _replica(self, dev: torch.device, i: int) -> Replica:
         rt = self.runtime
@@ -831,6 +843,38 @@ class EnsembleSampler:
             self._request_rows([sequence], [num_samples], [seed]),
             [num_samples], budget, max_batch, sample)
         return toks
+
+    # -- block diffusion (SDAR) -----------------------------------------------
+    @_request("block")
+    def block_ensemble(self, sequence: str, num_samples: int,
+                       block_length: int = 4, steps: int = 4,
+                       temperature: float = 1.0, seed: int = 0,
+                       budget: int = N_MAX_RESIDUE_SQUARE,
+                       max_batch: Optional[int] = None) -> np.ndarray:
+        """Block-diffusion sampling (``diffusion/block.py``) with the
+        runtime's SDAR model as its trunk: (num_samples, L) int32 structure
+        tokens, as ``ddpm_ensemble`` returns them.  Each batch's rows share
+        the prompt [BOS, residues, EOS]; a row's draws come from
+        ``uniform_factory`` over (block_length, 4096) a step."""
+        seq_rows, _, _, id_rows, lws = self._request_rows(
+            [sequence], [num_samples], [seed])
+        lw, Lpad = lws[0], seq_rows.shape[1]
+
+        def run(rep, idx, seq_b, lengths, pack, valid):
+            toks = block_sample(
+                rep.trunk, seq_b[:, :lw] + SEQUENCE_OFFSET, lw - 2,
+                self.uniform_factory(id_rows[idx], block_length,
+                                     STRUCTURE_CODES, rep.device),
+                block_length=block_length, steps=steps,
+                temperature=temperature, graphs=self.block_graphs,
+                held=self.block_forwards)
+            out = torch.full((len(idx), Lpad), C.STRUCTURE_PAD_TOKEN,
+                             dtype=torch.long, device=rep.device)
+            out[:, 1:lw - 1] = toks
+            return out
+
+        toks, _ = self._run_batches(seq_rows, lw, budget, max_batch, run)
+        return self._split_rows(toks, lws, [num_samples])[0]
 
     # -- decode to proteins ---------------------------------------------------
     def decode_ensemble(self, sequence: str, tokens: np.ndarray,

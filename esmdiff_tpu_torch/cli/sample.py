@@ -8,6 +8,11 @@ Modes (``--mode``, default gibbs as in JAX):
   gibbs — iterative confidence-ranked unmasking with the stock-head trunk
   ddpm  — fine-tuned ESMDiff ancestral masked-diffusion sampling
   eb    — entropy-bounded unmasking, at most ``8 * --num_steps`` steps
+  block — block diffusion with SDAR-30B-A3B (``models/sdar.py``): blocks of
+          4 structure tokens, ``--num_steps`` steps a block (at most one a
+          position), random weights at ``--model_scale``
+          (full: the published widths, 61 GB in bf16; tiny: the test
+          widths), the same VQ decode
 
 ``--quant int8`` runs the trunk's projections in W8A8 int8; ``--refine``
 projects each decoded CA trace into the bond/clash validity band.
@@ -51,8 +56,39 @@ from esmdiff_tpu_torch.api.generation import EnsembleSampler, GenerationConfig
 from esmdiff_tpu_torch.api.protein_api import ESM3Runtime, ESMProtein
 from esmdiff_tpu_torch.convert import checkpoints
 from esmdiff_tpu_torch.core import protein as protein_io
+from esmdiff_tpu_torch.device import resolve_device
+from esmdiff_tpu_torch.models.sdar import SDAR, SDARConfig
+from esmdiff_tpu_torch.models.vqvae import StructureTokenDecoder
+from esmdiff_tpu_torch.nn.layers import cast_matmul_weights, init_params
 from esmdiff_tpu_torch.ops.refine import refine_ca_ensemble
 from esmdiff_tpu_torch.utils.tracing import start_profiler, stop_profiler
+
+
+def sdar_runtime(args) -> ESM3Runtime:
+    """``--mode block``'s runtime: an SDAR trunk and the VQ decoder of
+    ``--model_scale``, random weights from ``--seed`` built on the
+    device, in bf16 (``--quant`` quantizes the ESM3 trunk only)."""
+    if args.quant != "none":
+        raise SystemExit("--mode block runs the SDAR trunk in bf16: "
+                         "--quant applies to the ESM3 modes")
+    if args.ckpt:
+        raise SystemExit("--mode block runs random weights (--model_scale); "
+                         "a published SDAR checkpoint loads through "
+                         "esmdiff_tpu_torch.convert.sdar")
+    print("[warning] sampling with RANDOM weights (throughput/dev runs "
+          "only — outputs are not physical ensembles)")
+    dev = resolve_device(args.device)
+    tiny = args.model_scale == "tiny"
+    cfg = SDARConfig.tiny(dtype="float32") if tiny else SDARConfig()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(args.seed))
+    with torch.device(dev):
+        model = SDAR(cfg).init_weights(gen)
+        decoder = StructureTokenDecoder(
+            checkpoints.scale_configs(args.model_scale)["decoder_cfg"])
+    init_params(decoder, gen)
+    cast_matmul_weights(decoder)
+    return ESM3Runtime(model, decoder, None, device=dev)
 
 
 def build_runtime(args) -> ESM3Runtime:
@@ -61,6 +97,8 @@ def build_runtime(args) -> ESM3Runtime:
     fine-tune structure head for ddpm, the stock multi-track head for
     gibbs and eb.  With ``--quant int8`` the trunk is quantized from its
     float32 weights."""
+    if args.mode == "block":
+        return sdar_runtime(args)
     if args.vqvae_ckpt and not args.ckpt:
         raise SystemExit("--vqvae_ckpt pairs a trained VQ-VAE with a "
                          "trunk: it needs --ckpt")
@@ -90,10 +128,11 @@ def get_argparser():
                         "layout) to pair with --ckpt.")
     p.add_argument("--output", type=str, default="output/inference_esmdiff")
     p.add_argument("--mode", type=str, default="gibbs",
-                   choices=["gibbs", "ddpm", "eb"],
+                   choices=["gibbs", "ddpm", "eb", "block"],
                    help="gibbs = cosine-schedule iterative unmasking; "
                         "ddpm = fine-tuned masked-diffusion; eb = adaptive "
-                        "entropy-bounded unmasking.")
+                        "entropy-bounded unmasking; block = SDAR block "
+                        "diffusion.")
     p.add_argument("--num_steps", type=int, default=25)
     p.add_argument("--num_samples", type=int, default=10)
     p.add_argument("--mask_ids", type=str, default=None,
@@ -132,9 +171,10 @@ def get_argparser():
                         "validity band (ops/refine.py), shifting every "
                         "residue's atoms rigidly with its CA.")
     p.add_argument("--plan", type=str, default="single",
-                   choices=["single", "ladder"],
+                   choices=["single", "ladder", "even"],
                    help="Batch planning: 'single' = one batch size per "
-                        "length bucket; 'ladder' = fewest surplus rows.")
+                        "length bucket; 'ladder' = fewest surplus rows; "
+                        "'even' = the fewest batches the cap allows.")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions.")
@@ -217,6 +257,11 @@ def main(argv=None, runtime: ESM3Runtime | None = None):
                 seed=args.seed,
                 coordinates=prot.coordinates if mask_ids else None,
                 mask_ids=mask_ids, max_batch=args.max_batch)
+        elif args.mode == "block":
+            tokens = sampler.block_ensemble(
+                seq, args.num_samples, steps=args.num_steps,
+                temperature=args.temperature,
+                seed=args.seed, max_batch=args.max_batch)
         else:
             structure_tokens = None
             if mask_ids or filled_ids:
